@@ -1,0 +1,561 @@
+"""End-to-end pipeline of the port (counterpart of ``gci_tpu.pipeline``).
+
+``run_filter`` — reference GCI.py:172-312 ``filter()``: ingest + filter +
+                 curate + depth-accumulate one read-type's alignment files,
+                 write the ``.depth.gz`` checkpoint.
+``run_gci``    — reference GCI.py:897-1028 ``GCI()``: the whole run (gap
+                 scan, per-type filter, gap masking, two-type merge, issue
+                 BEDs, scoring, optional plots).
+
+Single process, single device.  Ingestion, filtering, curation and scoring
+are ``gci_tpu``'s host code, reused by import.  Depth backends: ``device``
+(``DeviceDepth`` on a torch device: the GPU in production, the CPU in
+tests), ``events`` (O(reads) event space, host) and ``numpy`` (host
+oracle).  The sharded and streamed backends, the multi-host input shards and
+the pack<->scatter overlap are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+from gci_tpu.depth import GenomeLayout, accumulate_depth, depth_dict_from_flat
+from gci_tpu.depth.base import ResidentDepth
+from gci_tpu.depth.eventspace import DepthEvents, events_dict_from_reads
+from gci_tpu.filters import (
+    CurationInput,
+    bam_filter_mask,
+    curate_files,
+    dedup_last_wins,
+    elect_primary_targets,
+    paf_filter_mask,
+)
+from gci_tpu.filters.cascade import high_qual_keys
+from gci_tpu.io.fasta import mask_gaps_in_depths, scan_fasta
+from gci_tpu.io.paf import read_paf
+from gci_tpu.utils import get_metrics, stage
+from gci_tpu_torch.depth import PORTED_BACKENDS, resolve_auto_backend
+from gci_tpu_torch.device import resolve_device
+from gci_tpu_torch.io.depth_file import write_depth_gz
+from gci_tpu_torch.parallel.distributed import is_primary_host
+from gci_tpu_torch.reports import emit_gaps_bed, emit_issue_bed
+from gci_tpu_torch.score.report import compute_continuity_report
+from gci_tpu_torch.utils.files import require_writable
+
+# the device backend indexes genome slots with int32 (pack_read_deltas); a
+# larger genome needs the streamed path or int64 slots, both still to port
+SINGLE_DEVICE_SLOT_LIMIT = np.iinfo(np.int32).max
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported to gci_tpu_torch")
+
+
+def resolve_backend(depth_backend: str, torch_device=None):
+    """(backend, torch.device or None) for a run; ``auto`` picks ``device``
+    on a CUDA machine, else ``events``.  The device backend defaults to
+    CUDA and raises when there is none."""
+    if depth_backend == "auto":
+        depth_backend = resolve_auto_backend()
+    if depth_backend not in PORTED_BACKENDS:
+        raise _not_ported(f"the {depth_backend!r} depth backend")
+    if depth_backend != "device":
+        return depth_backend, None
+    return depth_backend, resolve_device("cuda" if torch_device is None else torch_device)
+
+
+def run_filter(
+    paf_files: list[str],
+    bam_files: list[str],
+    prefix: str = "GCI",
+    map_qual: int = 30,
+    mq_cutoff: int = 50,
+    iden_percent: float = 0.9,
+    clip_percent: float = 0.1,
+    ovlp_percent: float = 0.9,
+    flank_len: int = 15,
+    directory: str = ".",
+    force: bool = False,
+    log_reads_type: str = "",
+    chrs_list: list[str] = (),
+    threads: int = 4,
+    depth_backend: str = "auto",
+    torch_device=None,
+    gaps=None,
+    threshold: int = 0,
+):
+    """Filter alignments of one read type into depth (GCI.py:172-312).
+
+    ``gaps``/``threshold`` feed the device backend so its one kernel pass
+    can pre-extract the run's issue edges; other backends ignore them (gap
+    masking stays a separate pipeline stage, as in the reference).
+    """
+    require_writable(f"{directory}/{prefix}.depth.gz", force)
+    print(f"Filtering {log_reads_type} alignment files ...")
+    depth_backend, torch_device = resolve_backend(depth_backend, torch_device)
+
+    from gci_tpu.io.bam import BamStream
+
+    chunk_bytes = int(os.environ.get("GCI_BAM_CHUNK_BYTES", 64 << 20))
+
+    def open_stream(path: str) -> BamStream:
+        return BamStream(path, threads=threads, keep_names=False,
+                         chunk_bytes=chunk_bytes)
+
+    # only the first stream opens up-front (it provides the target table);
+    # the rest open lazily in the per-file loop
+    stream0 = open_stream(bam_files[0])
+    if chrs_list:
+        targets_length = {
+            r: l
+            for r, l in zip(stream0.references, stream0.lengths)
+            if r in chrs_list
+        }
+    else:
+        targets_length = stream0.targets_length()
+    target_ids = {name: k for k, name in enumerate(targets_length)}
+    layout = GenomeLayout.from_targets(targets_length)
+    if depth_backend == "device" and layout.total_slots > SINGLE_DEVICE_SLOT_LIMIT:
+        stream0.close()
+        raise _not_ported(
+            f"a {layout.total_slots}-slot genome (above the single-device "
+            f"int32 limit of {SINGLE_DEVICE_SLOT_LIMIT}) needs the streamed path, which"
+        )
+
+    hq_parts: list[np.ndarray] = []
+    curation_inputs: list[CurationInput] = []
+
+    # --- PAF branch (GCI.py:213-254): cumulative election across files
+    if paf_files:
+        from gci_tpu.io.paf import PafData
+
+        global_target_names = list(targets_length)
+        paf_masked = []
+        for path in paf_files:
+            with stage(f"{log_reads_type}:paf_parse:{path}") as paf_stage:
+                paf = read_paf(path, threads=threads)
+                paf_stage.items = paf.n_records
+                paf_stage.unit = "rows"
+                # map this file's target table onto the pipeline's; unknown
+                # targets drop here (reference target-membership check)
+                t2g = np.array(
+                    [target_ids.get(t, -1) for t in paf.target_names] or [-1],
+                    dtype=np.int32,
+                )
+                gtid = t2g[paf.tid]
+                mask = (gtid >= 0) & paf_filter_mask(
+                    paf.mapq, paf.nmatch, paf.alnlen, map_qual, iden_percent
+                )
+                idx = np.flatnonzero(mask)
+                keys = np.ascontiguousarray(paf.name_keys[idx])
+                cand = PafData(
+                    _names=None, name_keys=keys, tid=gtid[idx].astype(np.int32),
+                    target_names=global_target_names,
+                    qlen=paf.qlen[idx], qstart=paf.qstart[idx],
+                    qend=paf.qend[idx], tstart=paf.tstart[idx],
+                    tend=paf.tend[idx], nmatch=paf.nmatch[idx],
+                    alnlen=paf.alnlen[idx], mapq=paf.mapq[idx],
+                )
+                paf_masked.append((cand, np.ones(keys.shape[0], dtype=bool)))
+                hq_parts.append(
+                    high_qual_keys(
+                        keys, np.ones(keys.shape[0], dtype=bool),
+                        paf.mapq[idx], mq_cutoff,
+                    )
+                )
+        with stage(f"{log_reads_type}:paf_election"):
+            for elected in elect_primary_targets(paf_masked):
+                curation_inputs.append(
+                    CurationInput(
+                        name_keys=elected.name_keys,
+                        target_id=elected.tid,
+                        start=elected.start,
+                        end=elected.end,
+                        qlen=elected.qlen,
+                    )
+                )
+
+    # --- BAM branch (GCI.py:257-270): streamed scan, vectorized cascade;
+    # each chunk is filtered and compacted while the native producer
+    # inflates the next, and the last-wins dedup runs over the concatenated
+    # per-chunk survivors (file order, GCI.py:166)
+    empty_hq = np.empty(0, dtype=[("a", np.uint64), ("b", np.uint64)])
+    for file_no, path in enumerate(bam_files):
+        stream = stream0 if file_no == 0 else open_stream(path)
+        hq_file_parts: list[np.ndarray] = []
+        with stage(f"{log_reads_type}:bam_pack:{path}") as pack_stage, stream:
+            # map this file's ref ids onto the (possibly chrs-restricted) table
+            local_to_global = np.full(
+                len(stream.references) + 1, -1, dtype=np.int32
+            )
+            for k, name in enumerate(stream.references):
+                if name in target_ids:
+                    local_to_global[k] = target_ids[name]
+            cand_parts: list[tuple[np.ndarray, ...]] = []
+            n_packed = 0
+            for chunk in stream:
+                n_packed += chunk.n_records
+                ref_id = chunk.columns["ref_id"]
+                valid_ref = (ref_id >= 0) & (ref_id < len(stream.references))
+                gtid = np.where(
+                    valid_ref, local_to_global[np.clip(ref_id, 0, None)], -1
+                )
+                mask = (gtid >= 0) & bam_filter_mask(
+                    chunk.columns, map_qual, clip_percent, iden_percent
+                )
+                hq_file_parts.append(
+                    high_qual_keys(
+                        chunk.name_keys, mask, chunk.columns["mapq"], mq_cutoff
+                    )
+                )
+                idx = np.flatnonzero(mask)
+                if idx.size:
+                    cand_parts.append((
+                        chunk.name_keys[idx],
+                        gtid[idx].astype(np.int32),
+                        chunk.columns["pos"][idx].astype(np.int64),
+                        chunk.columns["ref_end"][idx].astype(np.int64),
+                        chunk.columns["qlen"][idx].astype(np.int64),
+                    ))
+            pack_stage.items = n_packed
+            pack_stage.unit = "records"
+        if cand_parts:
+            keys, tid, start, end, qlen = (
+                np.concatenate([p[j] for p in cand_parts]) for j in range(5)
+            )
+        else:
+            keys = np.empty((0, 2), dtype=np.uint64)
+            tid = np.empty(0, dtype=np.int32)
+            start = end = qlen = np.empty(0, dtype=np.int64)
+        nonempty_hq = [p for p in hq_file_parts if p.size]
+        hq_parts.append(
+            np.unique(np.concatenate(nonempty_hq)) if nonempty_hq else empty_hq
+        )
+        survivors = dedup_last_wins(keys, np.ones(keys.shape[0], dtype=bool))
+        curation_inputs.append(
+            CurationInput(
+                name_keys=keys[survivors],
+                target_id=tid[survivors],
+                start=start[survivors],
+                end=end[survivors],
+                qlen=qlen[survivors],
+            )
+        )
+
+    non_empty = [p for p in hq_parts if p.size]
+    high_qual = np.unique(np.concatenate(non_empty)) if non_empty else empty_hq
+
+    with stage(f"{log_reads_type}:curation"):
+        curated = curate_files(curation_inputs, high_qual, ovlp_percent)
+
+    with stage(
+        f"{log_reads_type}:depth_accumulate",
+        items=int(curated.start.shape[0]), unit="reads",
+    ):
+        if depth_backend == "events":
+            depths = events_dict_from_reads(
+                layout, curated.target_id, curated.start, curated.end, flank_len
+            )
+        elif depth_backend == "device":
+            # one scatter of the packed event word + ONE fused scan kernel
+            # (depth, gap-masked issue edges, checkpoint run boundaries); the
+            # depth stays device-resident for the run
+            from gci_tpu_torch.depth.fused import DeviceDepth
+
+            depths = DeviceDepth.from_reads(
+                layout, curated.target_id, curated.start, curated.end,
+                flank_len, gaps=gaps, issue_range=(-1, threshold),
+                device=torch_device,
+            )
+        else:
+            flat = accumulate_depth(
+                layout, curated.target_id, curated.start, curated.end,
+                flank_len, backend="numpy",
+            )
+            depths = depth_dict_from_flat(layout, flat)
+
+    print(f"Filtering {log_reads_type} alignment files done!!!")
+    print(f'Writing depths into "{directory}/{prefix}.depth.gz" ...')
+    if isinstance(depths, ResidentDepth):
+        # device->host run-boundary readback under its own stage (cached on
+        # the object; the writer reuses it)
+        with stage(f"{log_reads_type}:checkpoint_readback"):
+            depths.to_events()
+    with stage(f"{log_reads_type}:write_depth_gz"):
+        write_depth_gz(f"{directory}/{prefix}.depth.gz", depths)
+    print("Writing depths done!!!\n\n")
+    return depths, targets_length
+
+
+def merge_two_type_depths(
+    hifi_depths,
+    nano_depths,
+    prefix: str = "GCI_two_type",
+    directory: str = ".",
+    force: bool = False,
+):
+    """Per-base max of the two read types (GCI.py:332-353) + checkpoint."""
+    print("Merging HiFi and ONT depth file ...")
+    require_writable(f"{directory}/{prefix}.depth.gz", force)
+    if isinstance(hifi_depths, ResidentDepth):
+        merged = hifi_depths.maximum(nano_depths)
+    else:
+        merged = {
+            t: d.maximum(nano_depths[t]) if isinstance(d, DepthEvents)
+            else np.maximum(d, nano_depths[t])
+            for t, d in hifi_depths.items()
+        }
+    write_depth_gz(f"{directory}/{prefix}.depth.gz", merged)
+    print("Merging HiFi and ONT depth file done!!!\n\n")
+    return merged
+
+
+def run_gci(
+    hifi: list[str] | None = None,
+    nano: list[str] | None = None,
+    directory: str = ".",
+    prefix: str = "GCI",
+    map_qual: int = 30,
+    mq_cutoff: int = 50,
+    iden_percent: float = 0.9,
+    ovlp_percent: float = 0.9,
+    clip_percent: float = 0.1,
+    flank_len: int = 15,
+    threshold: int = 0,
+    plot: bool = False,
+    depth_min: float = 0.1,
+    depth_max: float = 4.0,
+    window_size: int = 50000,
+    image_type: str = "png",
+    force: bool = False,
+    dist_percent: float = 0.005,
+    reference: str | None = None,
+    regions: str | None = None,
+    chrs: str | None = None,
+    threads: int = 4,
+    depth_backend: str = "auto",
+    torch_device: str | torch.device | None = None,
+    profile: bool = False,
+) -> None:
+    """Whole run with the semantics of the reference's ``GCI()`` (GCI.py:897-1028).
+
+    ``torch_device`` is where the ``device`` backend keeps its depth
+    (default: the current CUDA device; ``"cpu"`` runs the kernels' plain
+    versions).
+    """
+    from gci_tpu_torch.native import ensure_host_codec
+
+    depth_backend, torch_device = resolve_backend(depth_backend, torch_device)
+    ensure_host_codec()
+    _run_gci_inner(
+        hifi, nano, directory, prefix, map_qual, mq_cutoff, iden_percent,
+        ovlp_percent, clip_percent, flank_len, threshold, plot, depth_min,
+        depth_max, window_size, image_type, force, dist_percent, reference,
+        regions, chrs, threads, depth_backend, torch_device,
+    )
+    if profile:
+        print("\n=== stage metrics ===")
+        print(get_metrics().report())
+
+
+def _host_view(depths):
+    """Event-space host view of a depth mapping (regions re-collapse, plots):
+    device-resident depths convert lazily (one O(runs) boundary transfer)."""
+    return depths.to_events() if isinstance(depths, ResidentDepth) else depths
+
+
+def _run_gci_inner(
+    hifi, nano, directory, prefix, map_qual, mq_cutoff, iden_percent,
+    ovlp_percent, clip_percent, flank_len, threshold, plot, depth_min,
+    depth_max, window_size, image_type, force, dist_percent, reference,
+    regions, chrs, threads, depth_backend, torch_device,
+) -> None:
+    from gci_tpu.io.bam import read_bam_header
+    from gci_tpu.io.bed import read_bed_dict
+
+    chrs_list = chrs.strip().split(",") if chrs is not None else []
+
+    regions_bed: dict[str, list[tuple[int, int]]] = {}
+    if regions is not None:
+        if os.path.exists(regions) and os.access(regions, os.R_OK):
+            regions_bed = read_bed_dict(regions)
+        else:
+            sys.exit(f'ERROR!!! "{regions}" is not an available file')
+
+    if directory.endswith("/"):
+        directory = "/".join(directory.split("/")[:-1])
+    if os.path.exists(directory):
+        if not os.access(directory, os.R_OK):
+            sys.exit(f'ERROR!!! The path "{directory}" is unable to read')
+        if not os.access(directory, os.W_OK):
+            sys.exit(f'ERROR!!! The path "{directory}" is unable to write')
+    else:
+        os.makedirs(directory, exist_ok=True)
+
+    if prefix.endswith("/"):
+        sys.exit(f'ERROR!!! The prefix "{prefix}" is not allowed')
+
+    if plot:
+        img_dir = f"{directory}/images"
+        if os.path.exists(img_dir):
+            if not os.access(img_dir, os.R_OK):
+                sys.exit(f'ERROR!!! The path "{img_dir}" is unable to read')
+            if not os.access(img_dir, os.W_OK):
+                sys.exit(f'ERROR!!! The path "{img_dir}" is unable to write')
+        else:
+            os.makedirs(img_dir, exist_ok=True)
+        image_type = image_type.lower()
+
+    # ONE pass over the reference: record ids (consistency checks,
+    # GCI.py:939-941) AND the N-gap scan (GCI.py:983-988) together
+    with stage("fasta_scan"):
+        ref_lengths, gaps = scan_fasta(reference)
+    ref_refs = list(ref_lengths.keys())
+    for i in chrs_list:
+        if i not in ref_refs:
+            sys.exit(f'ERROR!!! Chromosome "{i}" provided by `--chrs` is not in the reference')
+    for i in regions_bed:
+        if i not in ref_refs:
+            sys.exit(f'ERROR!!! Chromosome "{i}" provided by `--regions` is not in the reference')
+    if chrs_list and regions_bed:
+        if not all(i in chrs_list for i in regions_bed):
+            sys.exit(
+                "ERROR!!! Chromosomes in the regions bed file are inconsistent with "
+                'the provided list of chromosomes\nPlease read the help message use "-h" or "--help"'
+            )
+
+    def split_files(files):
+        bams = [f for f in files if f.endswith(".bam")]
+        pafs = [f for f in files if not f.endswith(".bam")]
+        return bams, pafs
+
+    hifi_bam: list[str] = []
+    hifi_paf: list[str] = []
+    nano_bam: list[str] = []
+    nano_paf: list[str] = []
+    hifi_refs_lengths: dict[str, int] = {}
+    nano_refs_lengths: dict[str, int] = {}
+    if hifi is not None:
+        hifi_bam, hifi_paf = split_files(hifi)
+        for f in hifi_bam:
+            refs, lens = read_bam_header(f)
+            hifi_refs_lengths = dict(zip(refs, lens))
+        if set(hifi_refs_lengths) != set(ref_refs):
+            sys.exit(
+                "ERROR!!! The targets in hifi alignment files are inconsistent with "
+                "the reference file\nPlease check both hifi alignment files and the reference"
+            )
+    if nano is not None:
+        nano_bam, nano_paf = split_files(nano)
+        for f in nano_bam:
+            refs, lens = read_bam_header(f)
+            nano_refs_lengths = dict(zip(refs, lens))
+        if set(nano_refs_lengths) != set(ref_refs):
+            sys.exit(
+                "ERROR!!! The targets in ont alignment files are inconsistent with "
+                "the reference file\nPlease check both ont alignment files and the reference"
+            )
+
+    print("Finding gaps ...")
+    gaps_path = emit_gaps_bed(gaps, prefix, directory, force)
+    if gaps_path is not None:
+        print(f"Finding gaps done!!! The gaps are in {gaps_path}\n\n")
+    else:
+        print("Finding gaps done!!! Awesome! No gaps were found!\n\n")
+
+    common = dict(
+        map_qual=map_qual,
+        mq_cutoff=mq_cutoff,
+        iden_percent=iden_percent,
+        clip_percent=clip_percent,
+        ovlp_percent=ovlp_percent,
+        flank_len=flank_len,
+        directory=directory,
+        force=force,
+        chrs_list=chrs_list,
+        threads=threads,
+        depth_backend=depth_backend,
+        torch_device=torch_device,
+        gaps=gaps,
+        threshold=threshold,
+    )
+
+    if nano is None or hifi is None:
+        files_bam = hifi_bam if nano is None else nano_bam
+        files_paf = hifi_paf if nano is None else nano_paf
+        rt = "HiFi" if nano is None else "ONT"
+        type_label = "HiFi" if nano is None else "Nano"
+        depths, targets_length = run_filter(
+            files_paf, files_bam, prefix, log_reads_type=rt, **common
+        )
+        depths = mask_gaps_in_depths(depths, gaps)
+        merged_bed = emit_issue_bed(
+            depths, prefix, threshold, flank_len, directory, force, rt
+        )
+        compute_continuity_report(
+            targets_length, prefix, directory, force, [merged_bed], [type_label],
+            flank_len, dist_percent, regions_bed,
+            [_host_view(depths) if regions_bed else depths], threshold, chrs_list,
+        )
+        host_plot_depths = [depths]
+    else:
+        if set(hifi_refs_lengths) != set(nano_refs_lengths):
+            sys.exit(
+                "ERROR!!! The targets in hifi and nano alignment files are "
+                "inconsistent\nPlease check the reference used in mapping both hifi and ont reads"
+            )
+        for target, length in hifi_refs_lengths.items():
+            if length != nano_refs_lengths[target]:
+                sys.exit(
+                    f'ERROR!!! The element "{target}:{length}" in hifi alignment files are '
+                    f'inconsistent with that in ont alignment files which is '
+                    f'"{target}:{nano_refs_lengths[target]}"\nPlease check the reference used '
+                    "in mapping both hifi and ont reads"
+                )
+        hifi_depths, targets_length = run_filter(
+            hifi_paf, hifi_bam, prefix + "_hifi", log_reads_type="HiFi", **common
+        )
+        hifi_depths = mask_gaps_in_depths(hifi_depths, gaps)
+        nano_depths, targets_length = run_filter(
+            nano_paf, nano_bam, prefix + "_nano", log_reads_type="ONT", **common
+        )
+        nano_depths = mask_gaps_in_depths(nano_depths, gaps)
+        two_type = merge_two_type_depths(
+            hifi_depths, nano_depths, prefix + "_two_type", directory, force
+        )
+        two_type = mask_gaps_in_depths(two_type, gaps)
+
+        hifi_bed = emit_issue_bed(
+            hifi_depths, prefix + "_hifi", threshold, flank_len, directory, force, "HiFi"
+        )
+        nano_bed = emit_issue_bed(
+            nano_depths, prefix + "_nano", threshold, flank_len, directory, force, "ONT"
+        )
+        two_bed = emit_issue_bed(
+            two_type, prefix + "_two_type", threshold, flank_len, directory, force, "two_types"
+        )
+        depths_for_report = (
+            [_host_view(hifi_depths), _host_view(nano_depths), _host_view(two_type)]
+            if regions_bed
+            else [hifi_depths, nano_depths, two_type]
+        )
+        compute_continuity_report(
+            targets_length, prefix, directory, force,
+            [hifi_bed, nano_bed, two_bed], ["HiFi", "Nano", "HiFi + Nano"],
+            flank_len, dist_percent, regions_bed,
+            depths_for_report, threshold, chrs_list,
+        )
+        host_plot_depths = [hifi_depths, nano_depths]
+    if plot and is_primary_host():
+        from gci_tpu.viz.plot import plot_depth_files
+
+        plot_depth_files(
+            [_host_view(d) for d in host_plot_depths], depth_min, depth_max,
+            window_size, image_type, directory, prefix, force, targets_length,
+            dist_percent, regions_bed, threshold,
+        )
+
+    print("GCI finished!!!\nBye!!!")
