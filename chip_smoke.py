@@ -7,20 +7,33 @@ Phases, each printing its results:
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA and
    nvcc versions, and how the reused C++ host codec built;
 2. build of the CUDA kernels (csrc/scan.cu), timed;
-3. each kernel against its plain PyTorch version at MH63 size (395,765,512
-   genome slots: 12 chromosomes, 395,765,500 bp), exact equality required,
-   with the median of 5 CUDA-event timings of each; the on-device compaction
-   as built (depth_scan + searchsorted) beside torch.nonzero; and a small
-   DeviceDepth against the numpy depth oracle;
-4. the main path: ``gci_tpu_torch.cli.main`` on an MH63-shaped reference
-   with a HiFi and an ONT BAM and a regions BED, once with ``--device
-   device`` and once with ``--device events``; all nine outputs must be
-   identical, and every kernel must have launched during the device run.
+3. each of the five kernels against its plain PyTorch version at MH63 size
+   (395,765,512 genome slots: 12 chromosomes, 395,765,500 bp), on read
+   deltas and on +-2^23 deltas with random truth bytes, exact equality
+   required, with the median of 5 CUDA-event timings of each; the three
+   unpacked-stream kernels against each other and against the packed one;
+   the on-device compaction as built (depth_scan + searchsorted) beside
+   torch.nonzero; and a small DeviceDepth, on the packed and on the flags
+   path, against the numpy depth oracle;
+4. the public entries of the two kernels no CLI path runs:
+   ``depth.device.depth_and_edges_fused`` (fused_depth_scan) and
+   ``depth.scan.fused_depth_scan_masked``, at MH63 size, each checked
+   against its plain version;
+5. the main path: ``gci_tpu_torch.cli.main`` on an MH63-shaped reference
+   with a HiFi and an ONT BAM and a regions BED, with ``--device device``
+   (the packed path), again with ``--device device`` and
+   ``gci_tpu_torch.depth.fused.PACKED_DEPTH_LIMIT`` set to 1 in this process
+   (the flags path every read count at or above 2^29 takes), and with
+   ``--device events``; both device runs' nine outputs must be identical to
+   the events run's.
 
-It prints one JSON line with each kernel's launches, error and times, then
-as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises
-and exits nonzero; so does a machine without CUDA.  Inputs are generated from
-a seed in a temporary directory that is removed at the end.
+Launch counts are set to 0 just before each path of phases 4 and 5 runs and
+read just after, and each path must have launched its kernels (and the
+packed and flags paths not each other's scan).  The script prints one JSON
+line with each kernel's launches on its path, error and times, then as its
+last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
+exits nonzero; so does a machine without CUDA.  Inputs are generated from a
+seed in a temporary directory that is removed at the end.
 """
 from __future__ import annotations
 
@@ -39,12 +52,24 @@ from gci_tpu.depth.accum import GenomeLayout, accumulate_depth_numpy
 from gci_tpu.intervals.collapse import collapse_depth_runs
 from gci_tpu.io.bam_writer import build_record, write_bam
 from gci_tpu_torch import cli, kernels
-from gci_tpu_torch.depth.fused import DeviceDepth, _compact, packed_event_word
+from gci_tpu_torch.depth import fused
+from gci_tpu_torch.depth.device import (
+    depth_and_edges_fused,
+    pack_read_deltas,
+    scatter_events,
+)
+from gci_tpu_torch.depth.fused import DeviceDepth, _compact, flags_for, packed_event_word
 from gci_tpu_torch.depth.scan import (
     depth_scan,
     depth_scan_torch,
+    fused_depth_scan,
+    fused_depth_scan_flags,
+    fused_depth_scan_flags_torch,
+    fused_depth_scan_masked,
+    fused_depth_scan_masked_torch,
     fused_depth_scan_packed,
     fused_depth_scan_packed_torch,
+    fused_depth_scan_torch,
 )
 from gci_tpu_torch.native import ensure_host_codec
 from gci_tpu.utils import get_metrics
@@ -64,12 +89,21 @@ OUTPUTS = [
     f"{PREFIX}_two_type.0.depth.bed", f"{PREFIX}.gci", f"{PREFIX}.regions.gci",
     f"{PREFIX}.gaps.bed",
 ]
+SOURCE = "gci_tpu_torch/csrc/scan.cu"
 KERNEL_ROWS = {
-    # wrapper name -> (source, the TPU kernel it replaces)
-    "fused_depth_scan_packed": ("gci_tpu_torch/csrc/scan.cu",
-                                "gci_tpu/depth/pallas_scan.py:605"),
-    "depth_scan": ("gci_tpu_torch/csrc/scan.cu", "gci_tpu/depth/pallas_scan.py:208"),
+    # wrapper name -> (the TPU kernel it replaces, the path whose launches count)
+    "fused_depth_scan_packed": ("gci_tpu/depth/pallas_scan.py:605", "packed"),
+    "depth_scan": ("gci_tpu/depth/pallas_scan.py:208", "packed"),
+    "fused_depth_scan_flags": ("gci_tpu/depth/pallas_scan.py:467", "flags"),
+    "fused_depth_scan": ("gci_tpu/depth/pallas_scan.py:252", "entries"),
+    "fused_depth_scan_masked": ("gci_tpu/depth/pallas_scan.py:336", "entries"),
 }
+# the kernels each CLI path must launch, and the scan it must not
+PATH_KERNELS = {
+    "packed": (("fused_depth_scan_packed", "depth_scan"), "fused_depth_scan_flags"),
+    "flags": (("fused_depth_scan_flags", "depth_scan"), "fused_depth_scan_packed"),
+}
+WIDE = (-(2**30), 2**30)  # an issue range holding about half of random depths
 
 
 def log(msg: str) -> None:
@@ -99,6 +133,29 @@ def median_ms(fn, runs: int = TIMED_RUNS) -> float:
 
 def max_abs_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
+
+
+def hold(name: str, kernel, plain, cases, timed) -> dict:
+    """Each case through the kernel and its plain version, every output
+    exactly equal; then the median times of both on ``timed``."""
+    before = kernels.LAUNCHES[name]
+    err = 0
+    for k, args in enumerate(cases):
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        for g, w in zip(got, want, strict=True):
+            check(g.dtype == w.dtype and torch.equal(g, w), f"{name} != plain on case {k}")
+            err = max(err, max_abs_err(g, w))
+        del got, want
+    check(kernels.LAUNCHES[name] == before + len(cases),
+          f"{name} launch count did not advance")
+    ms = median_ms(lambda: kernel(*timed))
+    plain_ms = median_ms(lambda: plain(*timed))
+    log(f"[kernels] {name} exact on {len(cases)} inputs, {ms:.4f} ms vs plain "
+        f"{plain_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -224,39 +281,39 @@ def make_inputs(root: str) -> dict[str, str]:
 # 3. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def synthetic_reads(rng, layout, n_reads=N_HIFI):
+    tid = rng.integers(0, len(layout.names), n_reads).astype(np.int32)
+    start = (rng.random(n_reads) * layout.lengths[tid]).astype(np.int64)
+    end = start + rng.integers(1_000, 40_000, n_reads)
+    return tid, start, end
+
+
+def read_delta(layout, tid, start, end, dev):
+    gs, ge, live = pack_read_deltas(layout, tid, start, end, 15)
+    return scatter_events(layout.total_slots, dev, [(gs, live), (ge, -live)])
+
+
 def phase_kernels(dev: torch.device) -> dict[str, dict]:
     rng = np.random.default_rng(SEED + 1)
     lengths = chrom_lengths()
+    gaps = gap_runs(lengths)
     layout = GenomeLayout.from_targets(lengths)
     n = layout.total_slots
     log(f"[kernels] {n} slots")
     rows = {}
 
     # K1 on the port's own packed-word scatter of synthetic reads with N-gaps
-    tid = rng.integers(0, len(lengths), N_HIFI).astype(np.int32)
-    start = (rng.random(N_HIFI) * layout.lengths[tid]).astype(np.int64)
-    end = start + rng.integers(1_000, 40_000, N_HIFI)
-    word = packed_event_word(layout, tid, start, end, 15, gap_runs(lengths), dev)
-    before = kernels.LAUNCHES["fused_depth_scan_packed"]
-    err = 0
-    for hi in (0, 1):
-        got = fused_depth_scan_packed(word, -1, hi)
-        want = fused_depth_scan_packed_torch(word, -1, hi)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            check(torch.equal(g, w), f"fused_depth_scan_packed != plain (hi={hi})")
-            err = max(err, max_abs_err(g, w))
-    check(kernels.LAUNCHES["fused_depth_scan_packed"] == before + 2,
-          "fused_depth_scan_packed launch count did not advance")
-    ms = median_ms(lambda: fused_depth_scan_packed(word, -1, 0))
-    plain_ms = median_ms(lambda: fused_depth_scan_packed_torch(word, -1, 0))
-    rows["fused_depth_scan_packed"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    log(f"[kernels] fused_depth_scan_packed exact, {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+    tid, start, end = synthetic_reads(rng, layout)
+    word = packed_event_word(layout, tid, start, end, 15, gaps, dev)
+    rows["fused_depth_scan_packed"] = hold(
+        "fused_depth_scan_packed", fused_depth_scan_packed, fused_depth_scan_packed_torch,
+        [(word, -1, 0), (word, -1, 1)], (word, -1, 0),
+    )
 
     # compaction as built (depth_scan + searchsorted) vs torch.nonzero
-    _, flags = fused_depth_scan_packed(word, -1, 0)
+    k1_depth, k1_flags = fused_depth_scan_packed(word, -1, 0)
     del word
-    bits = (flags & 4) != 0
+    bits = (k1_flags & 4) != 0
     count = int(bits.sum())
     check(torch.equal(_compact(bits, count), torch.nonzero(bits).squeeze(1)),
           "compaction != torch.nonzero")
@@ -264,27 +321,63 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
     nz_ms = median_ms(lambda: torch.nonzero(bits).squeeze(1))
     log(f"[kernels] compaction of {count} change bits: depth_scan+searchsorted "
         f"{c_ms:.4f} ms, torch.nonzero {nz_ms:.4f} ms")
-    del flags, bits
+    del bits
 
     # K2 on +-2^23 deltas (wraps mod 2^32) and on a 0/1 bitmap
-    before = kernels.LAUNCHES["depth_scan"]
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
-    err = 0
-    for lo, hi in ((-(2**23), 2**23), (0, 2)):
-        x = torch.randint(lo, hi, (n,), dtype=torch.int32, device=dev, generator=g)
-        got, want = depth_scan(x), depth_scan_torch(x)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"depth_scan != plain on [{lo}, {hi})")
-        err = max(err, max_abs_err(got, want))
-        del got, want
-    check(kernels.LAUNCHES["depth_scan"] == before + 2,
-          "depth_scan launch count did not advance")
-    ms = median_ms(lambda: depth_scan(x))
-    plain_ms = median_ms(lambda: depth_scan_torch(x))
-    rows["depth_scan"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    log(f"[kernels] depth_scan exact, {ms:.4f} ms vs plain {plain_ms:.4f} ms")
-    del x
+    xs = [torch.randint(lo, hi, (n,), dtype=torch.int32, device=dev, generator=g)
+          for lo, hi in ((-(2**23), 2**23), (0, 2))]
+    rows["depth_scan"] = hold("depth_scan", depth_scan, depth_scan_torch,
+                              [(x,) for x in xs], (xs[1],))
+    del xs
+
+    # K3, K5, K4 on the same reads and intervals as K1 (a plain delta and
+    # flag bytes), and on +-2^23 deltas under random truth bytes
+    delta = read_delta(layout, tid, start, end, dev)
+    flags = flags_for(layout, gaps, 15, n, dev)
+    gap, valid = flags & 1, flags & 2
+
+    def random_bytes(p):
+        b = torch.randint(-128, 128, (n,), dtype=torch.int32, device=dev, generator=g)
+        return torch.where(torch.rand(n, device=dev, generator=g) < p, b, 0).to(torch.int8)
+
+    r_delta = torch.randint(-(2**23), 2**23, (n,), dtype=torch.int32, device=dev,
+                            generator=g)
+    r_flags, r_gap, r_valid = random_bytes(1.0), random_bytes(0.15), random_bytes(0.8)
+    rows["fused_depth_scan_flags"] = hold(
+        "fused_depth_scan_flags", fused_depth_scan_flags, fused_depth_scan_flags_torch,
+        [(delta, flags, -1, 0), (delta, flags, -1, 1), (r_delta, r_flags, *WIDE)],
+        (delta, flags, -1, 0),
+    )
+    rows["fused_depth_scan_masked"] = hold(
+        "fused_depth_scan_masked", fused_depth_scan_masked, fused_depth_scan_masked_torch,
+        [(delta, gap, valid, -1, 0), (r_delta, r_gap, r_valid, *WIDE)],
+        (delta, gap, valid, -1, 0),
+    )
+    rows["fused_depth_scan"] = hold(
+        "fused_depth_scan", fused_depth_scan, fused_depth_scan_torch,
+        [(delta, valid, -1, 0), (r_delta, r_valid, *WIDE)], (delta, valid, -1, 0),
+    )
+    del r_delta, r_flags, r_gap, r_valid
+
+    # the three agree with each other and with K1 on matching inputs
+    d3, o3 = fused_depth_scan_flags(delta, flags, -1, 0)
+    check(torch.equal(d3, k1_depth) and torch.equal(o3, k1_flags & 7),
+          "fused_depth_scan_flags != fused_depth_scan_packed & 7")
+    del k1_depth, k1_flags
+    d5, r5, f5, c5 = fused_depth_scan_masked(delta, gap, valid, -1, 0)
+    check(torch.equal(d5, d3) and torch.equal(r5, o3 & 1)
+          and torch.equal(f5, (o3 >> 1) & 1) and torch.equal(c5, (o3 >> 2) & 1),
+          "fused_depth_scan_masked != fused_depth_scan_flags bits 0-2")
+    del d5, r5, f5, c5
+    d4, r4, f4 = fused_depth_scan(delta, valid, -1, 0)
+    _, r0, f0, _ = fused_depth_scan_masked(delta, torch.zeros_like(gap), valid, -1, 0)
+    check(torch.equal(d4, d3) and torch.equal(r4, r0) and torch.equal(f4, f0),
+          "fused_depth_scan != fused_depth_scan_masked without gaps")
+    log("[kernels] fused_depth_scan_flags, _masked and fused_depth_scan agree with "
+        "each other and with fused_depth_scan_packed")
+    del delta, flags, gap, valid, d3, o3, d4, r4, f4, r0, f0
     phase_small_oracle(dev)
     torch.cuda.empty_cache()
     return rows
@@ -298,26 +391,68 @@ def phase_small_oracle(dev: torch.device) -> None:
     start = rng.integers(0, 25_000, 2_000).astype(np.int64)
     end = start + rng.integers(40, 3_000, 2_000)
     gaps = {"a": [(100, 900), (40_000, 40_500)], "c": [(0, 64)]}
-    dd = DeviceDepth.from_reads(layout, tid, start, end, 15, gaps=gaps,
-                                issue_range=(-1, 1), device=dev)
     flat = accumulate_depth_numpy(layout, tid, start, end, 15)
-    got = dd.materialize_dict()
-    masked = dd.mask_gaps(gaps)
-    for k, name in enumerate(layout.names):
-        o, L = int(layout.offsets[k]), int(layout.lengths[k])
-        want = flat[o : o + L].copy()
-        check(np.array_equal(got[name], want), f"small DeviceDepth != numpy ({name})")
-        check(np.array_equal(dd.to_events()[name].materialize(), want),
-              f"small DeviceDepth events != numpy ({name})")
-        for s, e in gaps.get(name, []):
-            want[s:e] = 0
-        check(masked.collapse_dict(-1, 1, 15)[name] == collapse_depth_runs(want, -1, 1, 15),
-              f"small DeviceDepth issue intervals != numpy ({name})")
-    log("[kernels] small DeviceDepth on the card equals the numpy oracle")
+    limit = fused.PACKED_DEPTH_LIMIT
+    for path, gap_bit in (("packed", 8), ("flags", 1)):
+        fused.PACKED_DEPTH_LIMIT = limit if path == "packed" else 0
+        try:
+            dd = DeviceDepth.from_reads(layout, tid, start, end, 15, gaps=gaps,
+                                        issue_range=(-1, 1), device=dev)
+        finally:
+            fused.PACKED_DEPTH_LIMIT = limit
+        check(dd.gap_bit == gap_bit, f"small DeviceDepth did not take the {path} path")
+        got = dd.materialize_dict()
+        masked = dd.mask_gaps(gaps)
+        for k, name in enumerate(layout.names):
+            o, L = int(layout.offsets[k]), int(layout.lengths[k])
+            want = flat[o : o + L].copy()
+            check(np.array_equal(got[name], want), f"small DeviceDepth != numpy ({path}, {name})")
+            check(np.array_equal(dd.to_events()[name].materialize(), want),
+                  f"small DeviceDepth events != numpy ({path}, {name})")
+            for s, e in gaps.get(name, []):
+                want[s:e] = 0
+            check(masked.collapse_dict(-1, 1, 15)[name] == collapse_depth_runs(want, -1, 1, 15),
+                  f"small DeviceDepth issue intervals != numpy ({path}, {name})")
+    log("[kernels] small DeviceDepth on the card equals the numpy oracle on the "
+        "packed and the flags path")
 
 
 # ---------------------------------------------------------------------------
-# 4. the main path
+# 4. the public entries of fused_depth_scan and fused_depth_scan_masked
+# ---------------------------------------------------------------------------
+
+def phase_entries(dev: torch.device) -> dict[str, int]:
+    rng = np.random.default_rng(SEED + 3)
+    lengths = chrom_lengths()
+    layout = GenomeLayout.from_targets(lengths)
+    n = layout.total_slots
+    tid, start, end = synthetic_reads(rng, layout)
+    gs, ge, live = pack_read_deltas(layout, tid, start, end, 15)
+    flags = flags_for(layout, gap_runs(lengths), 15, n, dev)
+    gap, valid = flags & 1, flags & 2
+    del flags
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    edges = depth_and_edges_fused(gs, ge, live, valid, -1, 0, n, device=dev)
+    delta = read_delta(layout, tid, start, end, dev)
+    masked = fused_depth_scan_masked(delta, gap, valid, -1, 0)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for name in ("fused_depth_scan", "fused_depth_scan_masked"):
+        check(launches[name] == 1, f"{name} was not launched by its entry")
+    for got, want in ((edges, fused_depth_scan_torch(delta, valid, -1, 0)),
+                      (masked, fused_depth_scan_masked_torch(delta, gap, valid, -1, 0))):
+        check(all(torch.equal(a, b) for a, b in zip(got, want, strict=True)),
+              "an entry's outputs differ from the plain version")
+    log(f"[entries] depth_and_edges_fused and fused_depth_scan_masked exact at {n} "
+        f"slots; launches {launches}")
+    del edges, masked, delta, gap, valid
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 5. the main path
 # ---------------------------------------------------------------------------
 
 def _same_file(p1: str, p2: str) -> bool:
@@ -344,24 +479,42 @@ def run_cli(paths, out_dir: str, backend: str) -> tuple[float, list]:
     return wall, [r.as_dict() for r in get_metrics().records]
 
 
-def phase_main_path(paths, work: str) -> dict[str, int]:
-    d_dev, d_ev = os.path.join(work, "device"), os.path.join(work, "events")
+def run_device_path(paths, out_dir: str, path: str):
+    """One ``--device device`` CLI run with the launch counts set to 0 just
+    before it and read just after; the path's kernels must have launched."""
+    required, absent = PATH_KERNELS[path]
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    wall_dev, stages_dev = run_cli(paths, d_dev, "device")
+    wall, stages = run_cli(paths, out_dir, "device")
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
-    wall_ev, stages_ev = run_cli(paths, d_ev, "events")
-    for name in OUTPUTS:
-        check(_same_file(os.path.join(d_dev, name), os.path.join(d_ev, name)),
-              f"{name}: --device device differs from --device events")
+    for name in required:
+        check(launches[name] > 0, f"{name} was not launched on the {path} path")
+    check(launches[absent] == 0, f"{absent} was launched on the {path} path")
+    log(f"[main] {path} path: device run {wall:.3f} s; launches {launches}")
+    log(f"[main] {path} path: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    log(f"[main] {path} path: stages " + json.dumps(stages))
+    return launches
+
+
+def phase_main_path(paths, work: str) -> dict[str, dict]:
+    dirs = {k: os.path.join(work, k) for k in ("packed", "flags", "events")}
+    launches = {"packed": run_device_path(paths, dirs["packed"], "packed")}
+    limit = fused.PACKED_DEPTH_LIMIT
+    fused.PACKED_DEPTH_LIMIT = 1  # every read count takes the flags path
+    try:
+        launches["flags"] = run_device_path(paths, dirs["flags"], "flags")
+    finally:
+        fused.PACKED_DEPTH_LIMIT = limit
+    wall_ev, stages_ev = run_cli(paths, dirs["events"], "events")
+    for path in ("packed", "flags"):
+        for name in OUTPUTS:
+            check(_same_file(os.path.join(dirs[path], name),
+                             os.path.join(dirs["events"], name)),
+                  f"{name}: --device device ({path} path) differs from --device events")
     check("jax" not in sys.modules, "jax was imported")
-    log(f"[main] device run {wall_dev:.3f} s, events run {wall_ev:.3f} s; "
-        f"all {len(OUTPUTS)} outputs identical; launches {launches}")
-    log(f"[main] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
-    log("[main] stages device " + json.dumps(stages_dev))
+    log(f"[main] events run {wall_ev:.3f} s; all {len(OUTPUTS)} outputs of both "
+        "device paths identical to it")
     log("[main] stages events " + json.dumps(stages_ev))
     return launches
 
@@ -374,14 +527,15 @@ def main() -> None:
     smi = phase_environment()
     phase_build()
     rows = phase_kernels(dev)
+    launches = {"entries": phase_entries(dev)}
     with tempfile.TemporaryDirectory(prefix="gci_tpu_torch_smoke_") as work:
         paths = make_inputs(os.path.join(work, "inputs"))
-        launches = phase_main_path(paths, work)
+        launches.update(phase_main_path(paths, work))
 
     kernels_line = {"kernels": [
-        dict(name=name, route="cuda", source=KERNEL_ROWS[name][0],
-             replaces=KERNEL_ROWS[name][1], launches=launches[name], **rows[name])
-        for name in KERNEL_ROWS
+        dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
+             launches=launches[path][name], **rows[name])
+        for name, (replaces, path) in KERNEL_ROWS.items()
     ]}
     log(json.dumps(kernels_line))
     log(smi)

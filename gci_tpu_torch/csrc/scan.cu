@@ -1,7 +1,8 @@
 // Hopper (sm_90a) kernels of the single-GPU depth path.
 //
-// Both kernels are an inclusive int32 prefix sum over the concatenated genome
-// axis, wrapping mod 2^32, and share one reduce-then-scan skeleton:
+// Every kernel here is an inclusive int32 prefix sum over the concatenated
+// genome axis, wrapping mod 2^32, plus an epilogue, and all share one
+// reduce-then-scan skeleton:
 //
 //   1. tile_sums_kernel   one block per tile of kTile slots writes the tile's
 //                         sum (one read of the input);
@@ -12,22 +13,34 @@
 //                         runs the kernel's epilogue.
 //
 // Each thread owns kItems consecutive slots, loaded and stored as two 16-byte
-// words, so a warp moves one contiguous kilobyte per access and the running
-// sum of a thread's slots stays in registers.  The prefix just before a
-// thread's first slot is the thread's exclusive carry, so the predecessor
-// that the epilogue compares against needs no neighbour exchange.
+// words (int32 streams) or one 8-byte word (int8 streams), so a warp moves
+// one contiguous block per access and the running sum of a thread's slots
+// stays in registers.  The prefix just before a thread's first slot is the
+// thread's exclusive carry, so the predecessor's depth, which the epilogues
+// compare against, needs no neighbour exchange.
 //
 // depth_scan replaces gci_tpu/depth/pallas_scan.py:depth_scan (the prefix sum
 // behind every on-device compaction).  It is bound by device-memory bytes:
 // 4 B in and 4 B out per slot, plus the 4 B/slot re-read of pass 1.  The
 // design keeps every access a full 16-byte vector and does no other work.
 //
-// fused_depth_scan_packed replaces gci_tpu/depth/pallas_scan.py:
-// fused_depth_scan_packed (_scan_packed_kernel).  It is bound by device-memory
-// bytes: 4 B in and 5 B out per slot (depth plus the flag byte), plus the
-// 4 B/slot re-read of pass 1.  Depth, gap mask, issue-interval edges and run
-// boundaries are all derived from the one packed prefix in registers, so the
-// masked depth and the interval mask never reach device memory.
+// fused_depth_scan_packed replaces pallas_scan.py:fused_depth_scan_packed
+// (_scan_packed_kernel).  It is bound by device-memory bytes: 4 B in and 5 B
+// out per slot (depth plus the flag byte), plus the 4 B/slot re-read of
+// pass 1.  Depth, gap mask, issue-interval edges and run boundaries are all
+// derived from the one packed prefix in registers, so the masked depth and
+// the interval mask never reach device memory.
+//
+// fused_depth_scan_flags, fused_depth_scan_masked and fused_depth_scan
+// replace the pallas_scan.py kernels of the same names (_scan_flags_kernel,
+// _scan_masked_kernel, _scan_kernel).  They scan a plain read delta and take
+// the gap and scan-window state from int8 streams beside it, so unlike the
+// packed word they are exact at any depth.  Each is bound by device-memory
+// bytes (per slot: flags 4+1 B in, 4+1 B out; masked 4+2 B in, 4+3 B out;
+// plain 4+1 B in, 4+2 B out; plus the 4 B re-read of pass 1).  The gap and
+// valid state of a thread's predecessor is not in the prefix, so each
+// thread reads it with one byte load at first - 1 (the TPU kernels prefetch
+// the same byte per chunk as a scalar).
 //
 // A single-pass decoupled look-back scan would delete pass 1's re-read; that
 // is later work.
@@ -39,10 +52,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 8;  // two int4 per thread
+constexpr int kItems = 8;  // two int4, or one uint2 of bytes, per thread
 constexpr int kTile = kThreads * kItems;
 constexpr int kCarryThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
+static_assert(kItems == 8, "byte streams move as one 8-byte word per thread");
 
 __device__ __forceinline__ void load_items(const int32_t* __restrict__ in,
                                            int64_t first, int64_t n,
@@ -72,6 +86,44 @@ __device__ __forceinline__ void store_items(int32_t* __restrict__ out,
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       if (first + k < n) out[first + k] = static_cast<int32_t>(v[k]);
+    }
+  }
+}
+
+// The thread's kItems bytes, byte k at bits 8*(k&3) of word k>>2.
+__device__ __forceinline__ void load_bytes(const int8_t* __restrict__ in,
+                                           int64_t first, int64_t n,
+                                           uint32_t (&b)[2]) {
+  if (first + kItems <= n) {
+    const uint2 w = *reinterpret_cast<const uint2*>(in + first);
+    b[0] = w.x;
+    b[1] = w.y;
+  } else {
+    b[0] = 0u;
+    b[1] = 0u;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (first + k < n) {
+        b[k >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(in[first + k]))
+                     << (8 * (k & 3));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t byte_of(const uint32_t (&b)[2], int k) {
+  return (b[k >> 2] >> (8 * (k & 3))) & 0xFFu;
+}
+
+__device__ __forceinline__ void store_bytes(int8_t* __restrict__ out,
+                                            int64_t first, int64_t n,
+                                            const uint32_t (&b)[2]) {
+  if (first + kItems <= n) {
+    *reinterpret_cast<uint2*>(out + first) = make_uint2(b[0], b[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (first + k < n) out[first + k] = static_cast<int8_t>(byte_of(b, k));
     }
   }
 }
@@ -130,14 +182,30 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t x,
   return warp_excl + inc - x;
 }
 
+// Pass 3's prologue: loads the thread's kItems slots of `in` into v and
+// returns the prefix (mod 2^32) of every slot before the thread's first one.
+// Every thread of the block must call it (it holds block barriers).
+__device__ __forceinline__ uint32_t thread_prefix(
+    const int32_t* __restrict__ in, const uint32_t* __restrict__ carry,
+    int64_t first, int64_t n, uint32_t (&v)[kItems], uint32_t* warp_sums) {
+  load_items(in, first, n, v);
+  uint32_t s = 0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) s += v[k];
+  uint32_t total;
+  return carry[blockIdx.x] + block_exclusive_scan<kThreads>(s, warp_sums, &total);
+}
+
+__device__ __forceinline__ int64_t thread_first() {
+  return static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
+}
+
 __global__ void __launch_bounds__(kThreads)
 tile_sums_kernel(const int32_t* __restrict__ in, int64_t n,
                  uint32_t* __restrict__ sums) {
   __shared__ uint32_t warp_sums[kThreads / 32];
-  const int64_t first =
-      static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
   uint32_t v[kItems];
-  load_items(in, first, n, v);
+  load_items(in, thread_first(), n, v);
   uint32_t s = 0;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) s += v[k];
@@ -176,16 +244,9 @@ scan_tiles_kernel(const int32_t* __restrict__ in,
                   const uint32_t* __restrict__ carry, int64_t n,
                   int32_t* __restrict__ out) {
   __shared__ uint32_t warp_sums[kThreads / 32];
-  const int64_t first =
-      static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
+  const int64_t first = thread_first();
   uint32_t v[kItems];
-  load_items(in, first, n, v);
-  uint32_t s = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) s += v[k];
-  uint32_t total;
-  uint32_t acc =
-      carry[blockIdx.x] + block_exclusive_scan<kThreads>(s, warp_sums, &total);
+  uint32_t acc = thread_prefix(in, carry, first, n, v, warp_sums);
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     acc += v[k];
@@ -209,17 +270,10 @@ packed_scan_tiles_kernel(const int32_t* __restrict__ word,
                          int32_t lo, int32_t hi, int32_t* __restrict__ depth,
                          int8_t* __restrict__ flags) {
   __shared__ uint32_t warp_sums[kThreads / 32];
-  const int64_t first =
-      static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
+  const int64_t first = thread_first();
   uint32_t v[kItems];
-  load_items(word, first, n, v);
-  uint32_t s = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) s += v[k];
-  uint32_t total;
   // packed prefix just before this thread's first slot: its predecessor
-  uint32_t sw =
-      carry[blockIdx.x] + block_exclusive_scan<kThreads>(s, warp_sums, &total);
+  uint32_t sw = thread_prefix(word, carry, first, n, v, warp_sums);
   int32_t prev_depth;
   bool prev_m;
   if (first == 0) {
@@ -247,23 +301,149 @@ packed_scan_tiles_kernel(const int32_t* __restrict__ word,
     prev_m = m;
   }
   store_items(depth, first, n, v);
-  if (first + kItems <= n) {
-    *reinterpret_cast<uint2*>(flags + first) = make_uint2(f[0], f[1]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      if (first + k < n) {
-        flags[first + k] = static_cast<int8_t>((f[k >> 2] >> (8 * (k & 3))) & 0xFFu);
-      }
-    }
-  }
+  store_bytes(flags, first, n, f);
 }
 
+// Issue-interval membership of a raw depth under its gap and scan-window
+// state: the gap-masked depth lies in (lo, hi] inside the window.
+__device__ __forceinline__ bool in_issue(int32_t raw, bool gap, bool valid,
+                                         int32_t lo, int32_t hi) {
+  const int32_t masked = gap ? 0 : raw;
+  return valid && masked > lo && masked <= hi;
+}
+
+// fused_depth_scan_flags: flags in bit0 in-gap, bit1 valid; flags out bit0
+// rise, bit1 fall, bit2 change (raw run boundary, forced at position 0).
+__global__ void __launch_bounds__(kThreads)
+flags_scan_tiles_kernel(const int32_t* __restrict__ delta,
+                        const int8_t* __restrict__ flags,
+                        const uint32_t* __restrict__ carry, int64_t n,
+                        int32_t lo, int32_t hi, int32_t* __restrict__ depth,
+                        int8_t* __restrict__ out) {
+  __shared__ uint32_t warp_sums[kThreads / 32];
+  const int64_t first = thread_first();
+  uint32_t v[kItems];
+  uint32_t acc = thread_prefix(delta, carry, first, n, v, warp_sums);
+  uint32_t fin[2];
+  load_bytes(flags, first, n, fin);
+  // the predecessor's raw depth is the carry; its gap and valid bits are one
+  // byte load away.  Position 0 has none: outside every interval.
+  int32_t prev_raw = static_cast<int32_t>(acc);
+  bool prev_m = false;
+  if (first > 0 && first < n) {
+    const uint32_t pf = static_cast<uint8_t>(flags[first - 1]);
+    prev_m = in_issue(prev_raw, pf & 1u, pf & 2u, lo, hi);
+  }
+  uint32_t f[2] = {0u, 0u};
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    acc += v[k];
+    const int32_t d = static_cast<int32_t>(acc);
+    const uint32_t fk = byte_of(fin, k);
+    const bool m = in_issue(d, fk & 1u, fk & 2u, lo, hi);
+    const bool change = d != prev_raw || (k == 0 && first == 0);
+    const uint32_t bits = static_cast<uint32_t>(m && !prev_m) |
+                          (static_cast<uint32_t>(!m && prev_m) << 1) |
+                          (static_cast<uint32_t>(change) << 2);
+    f[k >> 2] |= bits << (8 * (k & 3));
+    v[k] = static_cast<uint32_t>(d);
+    prev_raw = d;
+    prev_m = m;
+  }
+  store_items(depth, first, n, v);
+  store_bytes(out, first, n, f);
+}
+
+// fused_depth_scan_masked: the same math as flags_scan_tiles_kernel with gap
+// and valid as separate int8 streams (nonzero is true) and rise, fall and
+// change as separate 0/1 int8 streams.
+__global__ void __launch_bounds__(kThreads)
+masked_scan_tiles_kernel(const int32_t* __restrict__ delta,
+                         const int8_t* __restrict__ gap,
+                         const int8_t* __restrict__ valid,
+                         const uint32_t* __restrict__ carry, int64_t n,
+                         int32_t lo, int32_t hi, int32_t* __restrict__ depth,
+                         int8_t* __restrict__ rise, int8_t* __restrict__ fall,
+                         int8_t* __restrict__ change) {
+  __shared__ uint32_t warp_sums[kThreads / 32];
+  const int64_t first = thread_first();
+  uint32_t v[kItems];
+  uint32_t acc = thread_prefix(delta, carry, first, n, v, warp_sums);
+  uint32_t g[2], va[2];
+  load_bytes(gap, first, n, g);
+  load_bytes(valid, first, n, va);
+  int32_t prev_raw = static_cast<int32_t>(acc);
+  bool prev_m = false;
+  if (first > 0 && first < n) {
+    prev_m = in_issue(prev_raw, gap[first - 1] != 0, valid[first - 1] != 0, lo, hi);
+  }
+  uint32_t r[2] = {0u, 0u}, f[2] = {0u, 0u}, c[2] = {0u, 0u};
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    acc += v[k];
+    const int32_t d = static_cast<int32_t>(acc);
+    const bool m = in_issue(d, byte_of(g, k) != 0, byte_of(va, k) != 0, lo, hi);
+    const int sh = 8 * (k & 3);
+    r[k >> 2] |= static_cast<uint32_t>(m && !prev_m) << sh;
+    f[k >> 2] |= static_cast<uint32_t>(!m && prev_m) << sh;
+    c[k >> 2] |= static_cast<uint32_t>(d != prev_raw || (k == 0 && first == 0)) << sh;
+    v[k] = static_cast<uint32_t>(d);
+    prev_raw = d;
+    prev_m = m;
+  }
+  store_items(depth, first, n, v);
+  store_bytes(rise, first, n, r);
+  store_bytes(fall, first, n, f);
+  store_bytes(change, first, n, c);
+}
+
+// fused_depth_scan: rise and fall of lo < depth <= hi inside valid (nonzero
+// is true), on the raw depth: no gap mask and no change stream.
+__global__ void __launch_bounds__(kThreads)
+edges_scan_tiles_kernel(const int32_t* __restrict__ delta,
+                        const int8_t* __restrict__ valid,
+                        const uint32_t* __restrict__ carry, int64_t n,
+                        int32_t lo, int32_t hi, int32_t* __restrict__ depth,
+                        int8_t* __restrict__ rise, int8_t* __restrict__ fall) {
+  __shared__ uint32_t warp_sums[kThreads / 32];
+  const int64_t first = thread_first();
+  uint32_t v[kItems];
+  uint32_t acc = thread_prefix(delta, carry, first, n, v, warp_sums);
+  uint32_t va[2];
+  load_bytes(valid, first, n, va);
+  bool prev_m = false;
+  if (first > 0 && first < n) {
+    prev_m = in_issue(static_cast<int32_t>(acc), false, valid[first - 1] != 0, lo, hi);
+  }
+  uint32_t r[2] = {0u, 0u}, f[2] = {0u, 0u};
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    acc += v[k];
+    const int32_t d = static_cast<int32_t>(acc);
+    const bool m = in_issue(d, false, byte_of(va, k) != 0, lo, hi);
+    const int sh = 8 * (k & 3);
+    r[k >> 2] |= static_cast<uint32_t>(m && !prev_m) << sh;
+    f[k >> 2] |= static_cast<uint32_t>(!m && prev_m) << sh;
+    v[k] = static_cast<uint32_t>(d);
+    prev_m = m;
+  }
+  store_items(depth, first, n, v);
+  store_bytes(rise, first, n, r);
+  store_bytes(fall, first, n, f);
+}
+
+int64_t tiles_for(int64_t n) { return (n + kTile - 1) / kTile; }
+
+// Sets the device and runs passes 1 and 2 over `in`, leaving each tile's
+// exclusive carry in tile_scratch.  Returns a cudaError_t.
 int launch_tile_carries(const int32_t* in, uint32_t* tile_scratch, int64_t n,
-                        int64_t tiles, cudaStream_t stream) {
+                        int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = tiles_for(n);
   tile_sums_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, stream>>>(
       in, n, tile_scratch);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   tile_carry_kernel<<<1, kCarryThreads, 0, stream>>>(tile_scratch, tiles);
   return static_cast<int>(cudaGetLastError());
@@ -271,6 +451,10 @@ int launch_tile_carries(const int32_t* in, uint32_t* tile_scratch, int64_t n,
 
 }  // namespace
 
+// Every entry below takes n slots (n > 0 launches), ceil(n / tile) uint32
+// words of tile_scratch, the CUDA device and stream, and returns a
+// cudaError_t.  int32 streams must be 16-byte aligned, int8 streams 8-byte
+// aligned.
 extern "C" {
 
 // Slots per tile: the caller allocates ceil(n / tile) uint32 words of scratch.
@@ -280,36 +464,74 @@ const char* gci_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// out[i] = in[0] + ... + in[i] (mod 2^32).  Returns a cudaError_t.
+// out[i] = in[0] + ... + in[i] (mod 2^32).
 int gci_depth_scan(const int32_t* in, int32_t* out, uint32_t* tile_scratch,
                    int64_t n, int device, void* stream) {
   if (n <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t tiles = (n + kTile - 1) / kTile;
   auto s = static_cast<cudaStream_t>(stream);
-  int rc = launch_tile_carries(in, tile_scratch, n, tiles, s);
+  int rc = launch_tile_carries(in, tile_scratch, n, device, s);
   if (rc != 0) return rc;
-  scan_tiles_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+  scan_tiles_kernel<<<static_cast<unsigned>(tiles_for(n)), kThreads, 0, s>>>(
       in, tile_scratch, n, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Packed-word scan: depth (int32) and flag byte (bit0 rise, bit1 fall,
 // bit2 change, bit3 in-gap) of word = read_delta<<2 | gap<<1 | valid.
-// Returns a cudaError_t.
 int gci_packed_scan(const int32_t* word, int32_t* depth, int8_t* flags,
                     uint32_t* tile_scratch, int64_t n, int32_t lo, int32_t hi,
                     int device, void* stream) {
   if (n <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t tiles = (n + kTile - 1) / kTile;
   auto s = static_cast<cudaStream_t>(stream);
-  int rc = launch_tile_carries(word, tile_scratch, n, tiles, s);
+  int rc = launch_tile_carries(word, tile_scratch, n, device, s);
   if (rc != 0) return rc;
-  packed_scan_tiles_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+  packed_scan_tiles_kernel<<<static_cast<unsigned>(tiles_for(n)), kThreads, 0, s>>>(
       word, tile_scratch, n, lo, hi, depth, flags);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Flags scan: raw depth and out byte (bit0 rise, bit1 fall, bit2 change) of
+// a read delta under flag bytes (bit0 in-gap, bit1 scan-window valid).
+int gci_flags_scan(const int32_t* delta, const int8_t* flags, int32_t* depth,
+                   int8_t* out, uint32_t* tile_scratch, int64_t n, int32_t lo,
+                   int32_t hi, int device, void* stream) {
+  if (n <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  int rc = launch_tile_carries(delta, tile_scratch, n, device, s);
+  if (rc != 0) return rc;
+  flags_scan_tiles_kernel<<<static_cast<unsigned>(tiles_for(n)), kThreads, 0, s>>>(
+      delta, flags, tile_scratch, n, lo, hi, depth, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Masked scan: raw depth and 0/1 rise, fall, change streams of a read delta
+// under separate gap and valid streams.
+int gci_masked_scan(const int32_t* delta, const int8_t* gap,
+                    const int8_t* valid, int32_t* depth, int8_t* rise,
+                    int8_t* fall, int8_t* change, uint32_t* tile_scratch,
+                    int64_t n, int32_t lo, int32_t hi, int device,
+                    void* stream) {
+  if (n <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  int rc = launch_tile_carries(delta, tile_scratch, n, device, s);
+  if (rc != 0) return rc;
+  masked_scan_tiles_kernel<<<static_cast<unsigned>(tiles_for(n)), kThreads, 0, s>>>(
+      delta, gap, valid, tile_scratch, n, lo, hi, depth, rise, fall, change);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Edges scan: depth and 0/1 rise, fall streams of lo < depth <= hi inside
+// valid.
+int gci_edges_scan(const int32_t* delta, const int8_t* valid, int32_t* depth,
+                   int8_t* rise, int8_t* fall, uint32_t* tile_scratch,
+                   int64_t n, int32_t lo, int32_t hi, int device,
+                   void* stream) {
+  if (n <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  int rc = launch_tile_carries(delta, tile_scratch, n, device, s);
+  if (rc != 0) return rc;
+  edges_scan_tiles_kernel<<<static_cast<unsigned>(tiles_for(n)), kThreads, 0, s>>>(
+      delta, valid, tile_scratch, n, lo, hi, depth, rise, fall);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
-"""Host helpers of the single-GPU depth path and the device prefix sum.
+"""Host helpers of the single-GPU depth path, the device scatter and scans.
 
 Counterpart of ``gci_tpu/depth/device.py``.  ``pack_read_deltas``,
 ``build_scan_valid`` and ``edge_indices_to_intervals`` are host numpy code,
-copied because their JAX module imports jax at its top; the rest of that
+copied because their JAX module imports jax at its top;
+``depth_and_edges_fused`` is the single-chip fused entry.  The rest of that
 module (the sharded mesh programs) belongs to the multi-GPU slice.
 """
 from __future__ import annotations
@@ -11,7 +12,7 @@ import numpy as np
 import torch
 
 from gci_tpu.depth.accum import GenomeLayout, clamp_read_intervals
-from gci_tpu_torch.depth.scan import depth_scan
+from gci_tpu_torch.depth.scan import depth_scan, fused_depth_scan
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -46,9 +47,53 @@ def pack_read_deltas(
     return gs, ge, live
 
 
+def scatter_events(pad_total: int, device: torch.device, events) -> torch.Tensor:
+    """int32 zeros(pad_total) plus every (indices, value) event, in one
+    ``index_add_``.
+
+    The reference's scatter drops out-of-range indices silently; torch's
+    raises (CPU) or asserts (CUDA), so the range is checked here on the host
+    and an index outside ``[0, pad_total)`` raises IndexError.  Integer adds
+    commute, so the atomics' order on the card cannot change the result.
+    """
+    idx = [np.asarray(i, np.int64) for i, _ in events]
+    val = [
+        np.broadcast_to(np.asarray(v, np.int32), i.shape) for i, (_, v) in zip(idx, events)
+    ]
+    idx = np.concatenate(idx) if idx else np.empty(0, np.int64)
+    val = np.concatenate(val) if val else np.empty(0, np.int32)
+    w = torch.zeros(pad_total, dtype=torch.int32, device=device)
+    if idx.shape[0] == 0:
+        return w
+    if int(idx.min()) < 0 or int(idx.max()) >= pad_total:
+        raise IndexError(
+            f"event index outside [0, {pad_total}): "
+            f"[{int(idx.min())}, {int(idx.max())}]"
+        )
+    w.index_add_(0, torch.from_numpy(idx).to(device), torch.from_numpy(val).to(device))
+    return w
+
+
 def _local_prefix_sum(delta: torch.Tensor) -> torch.Tensor:
     """Inclusive int32 prefix sum on the tensor's device (``depth_scan``)."""
     return depth_scan(delta)
+
+
+def depth_and_edges_fused(gs, ge, live, valid_i8, leftmost: int, rightmost: int,
+                          total_padded: int, *, device: torch.device):
+    """Scatter of the read deltas plus the fused scan on one device.
+
+    ``gs``, ``ge`` and ``live`` are host arrays as ``pack_read_deltas``
+    gives them; ``valid_i8`` is the int8 scan-window mask of
+    ``total_padded`` slots (nonzero is valid).  Returns (depth, rise int8,
+    fall int8) of ``leftmost < depth <= rightmost`` inside ``valid_i8``.
+    The reference drops out-of-range read indices silently; here a read
+    index outside ``[0, total_padded)`` raises IndexError.  Any
+    ``total_padded`` works: the kernel has no chunk multiple.
+    """
+    delta = scatter_events(total_padded, device, [(gs, live), (ge, -np.asarray(live))])
+    valid = torch.as_tensor(valid_i8, dtype=torch.int8, device=device)
+    return fused_depth_scan(delta, valid, leftmost, rightmost)
 
 
 def build_scan_valid(layout: GenomeLayout, flank_len: int,

@@ -4,6 +4,10 @@ Counterpart of ``gci_tpu/depth/fused.py``.  One scatter builds the packed
 event word ``read_delta<<2 | gap_event<<1 | valid_event`` on the device, and
 one launch of the packed-word scan kernel (``depth/scan.py``) turns it into
 depth plus a flag byte (bit0 rise, bit1 fall, bit2 change, bit3 in-gap).
+Where the depth could reach the packed word's bound (``PACKED_DEPTH_LIMIT``),
+the construction scatters a plain read delta instead, builds an int8 flag
+byte per slot (bit0 in-gap, bit1 scan-window valid) from interval events,
+and runs the flags scan kernel, which is exact at any depth.
 Everything that leaves the device is O(reads + runs + edges): run boundaries
 and issue edges are compacted on the device with a prefix sum (the
 ``depth_scan`` kernel) and ``searchsorted``, then read back in one transfer.
@@ -29,46 +33,24 @@ from gci_tpu_torch.depth.device import (
     _local_prefix_sum,
     edge_indices_to_intervals,
     pack_read_deltas,
+    scatter_events,
 )
-from gci_tpu_torch.depth.scan import fused_depth_scan_packed
+from gci_tpu_torch.depth.scan import (
+    fused_depth_scan_flags,
+    fused_depth_scan_packed,
+    rise_fall,
+    run_boundaries,
+)
 
 # depth-field bound of the packed event word (read_delta<<2): the scan is
-# exact iff depth < 2^29 at every position, and depth is bounded by the read
-# count.  Beyond it the reference switches to its unpacked flags kernel,
-# which this port does not have yet.
+# exact iff depth < 2^29 at every position.  At or above it the constructors
+# take the flags scan.  Read at call time, so a test can lower it.
 PACKED_DEPTH_LIMIT = 1 << 29
 
 
 # ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------
-
-def _scatter_events(pad_total: int, device: torch.device, events) -> torch.Tensor:
-    """int32 zeros(pad_total) plus every (indices, value) event, in one
-    ``index_add_``.
-
-    The reference's scatter drops out-of-range indices silently; torch's
-    raises (CPU) or asserts (CUDA), so the range is checked here on the host.
-    Integer adds commute, so the atomics' order on the card cannot change
-    the result.
-    """
-    idx = [np.asarray(i, np.int64) for i, _ in events]
-    val = [
-        np.broadcast_to(np.asarray(v, np.int32), i.shape) for i, (_, v) in zip(idx, events)
-    ]
-    idx = np.concatenate(idx) if idx else np.empty(0, np.int64)
-    val = np.concatenate(val) if val else np.empty(0, np.int32)
-    w = torch.zeros(pad_total, dtype=torch.int32, device=device)
-    if idx.shape[0] == 0:
-        return w
-    if int(idx.min()) < 0 or int(idx.max()) >= pad_total:
-        raise IndexError(
-            f"event index outside [0, {pad_total}): "
-            f"[{int(idx.min())}, {int(idx.max())}]"
-        )
-    w.index_add_(0, torch.from_numpy(idx).to(device), torch.from_numpy(val).to(device))
-    return w
-
 
 def _check_disjoint(starts: np.ndarray, stops: np.ndarray) -> None:
     """The packed word needs disjoint gap intervals (prefix bit in {0, 1})."""
@@ -85,36 +67,34 @@ def _mask(d: torch.Tensor, marks: torch.Tensor, gap_bit: int) -> torch.Tensor:
     return torch.where((marks & gap_bit) != 0, 0, d)
 
 
-def _change(x: torch.Tensor) -> torch.Tensor:
-    """Run boundaries: x[i] != x[i-1], forced at 0 (``_elementwise_fns``)."""
-    prev = torch.cat([x[:1] - 1, x[:-1]])
-    return x != prev
-
-
 def _edges(depth: torch.Tensor, valid: torch.Tensor, lo: int, hi: int):
     """Rise/fall bitmaps of the issue mask (``_elementwise_fns``)."""
-    m = (depth > lo) & (depth <= hi) & ((valid & 2) != 0)
-    prev = torch.cat([torch.zeros(1, dtype=torch.bool, device=m.device), m[:-1]])
-    return m & ~prev, ~m & prev
+    return rise_fall((depth > lo) & (depth <= hi) & ((valid & 2) != 0))
 
 
 def _flags(pad_total: int, device: torch.device, gap_s, gap_e, val_s, val_e):
     """Flag bytes: bit0 in-gap, bit1 scan-window valid, from O(intervals)
     scatters and two device prefix sums (the reference's ``_flags_fn``)."""
-    gd = _scatter_events(pad_total, device, [(gap_s, 1), (gap_e, -1)])
+    gd = scatter_events(pad_total, device, [(gap_s, 1), (gap_e, -1)])
     out = (_local_prefix_sum(gd) > 0).to(torch.int8)
     del gd
-    vd = _scatter_events(pad_total, device, [(val_s, 1), (val_e, -1)])
+    vd = scatter_events(pad_total, device, [(val_s, 1), (val_e, -1)])
     out += (_local_prefix_sum(vd) > 0).to(torch.int8) * 2
     return out
+
+
+def flags_for(layout: GenomeLayout, gaps, flank_len: int, pad_total: int,
+              device: torch.device) -> torch.Tensor:
+    """Device int8 flag bytes: bit0 = in-N-gap, bit1 = scan-window valid."""
+    gap_s, gap_e = gap_interval_events(layout, gaps)
+    val_s, val_e = _valid_intervals(layout, flank_len)
+    return _flags(pad_total, device, gap_s, gap_e, val_s, val_e)
 
 
 def valid_marks_for(layout: GenomeLayout, flank_len: int, pad_total: int,
                     device: torch.device) -> torch.Tensor:
     """Device int8 flag bytes with only the valid bit (bit1) populated."""
-    val_s, val_e = _valid_intervals(layout, flank_len)
-    empty = np.empty(0, np.int64)
-    return _flags(pad_total, device, empty, empty, val_s, val_e)
+    return flags_for(layout, None, flank_len, pad_total, device)
 
 
 def _compact(bits: torch.Tensor, count: int) -> torch.Tensor:
@@ -198,7 +178,7 @@ def packed_event_word(layout: GenomeLayout, target_id: np.ndarray,
     _check_disjoint(gap_s, gap_e)
     val_s, val_e = _valid_intervals(layout, flank_len)
     live4 = live << 2
-    return _scatter_events(DeviceDepth.pad_total_for(layout.total_slots), device, [
+    return scatter_events(DeviceDepth.pad_total_for(layout.total_slots), device, [
         (gs, live4), (ge, -live4), (gap_s, 2), (gap_e, -2), (val_s, 1), (val_e, -1),
     ])
 
@@ -286,18 +266,25 @@ class DeviceDepth(ResidentDepth):
         the edges the kernel extracts are of the *gap-masked* depth, so the
         resulting intervals become this object's cached issue BED once
         ``mask_gaps`` is applied (they are valid at once when there are no
-        gaps).
+        gaps).  Depth is bounded by the read count: below
+        ``PACKED_DEPTH_LIMIT`` reads the packed word is scanned, else a
+        plain delta under separate flag bytes.
         """
-        if start.shape[0] >= PACKED_DEPTH_LIMIT:
-            raise NotImplementedError(
-                f"{start.shape[0]} reads reach the packed word's depth bound "
-                "(2^29): the unpacked flags kernel is not yet ported"
+        if start.shape[0] < PACKED_DEPTH_LIMIT:
+            # no local name for the word: _from_word frees it once it is scanned
+            return cls._from_word(
+                layout,
+                packed_event_word(layout, target_id, start, end, flank_len, gaps, device),
+                gaps, flank_len, issue_range,
             )
-        # no local name for the word: _from_word frees it once it is scanned
-        return cls._from_word(
-            layout,
-            packed_event_word(layout, target_id, start, end, flank_len, gaps, device),
-            gaps, flank_len, issue_range,
+        pad_total = cls.pad_total_for(layout.total_slots)
+        # the flags first: their transient prefix buffers then do not
+        # coexist with the delta
+        flags = flags_for(layout, gaps, flank_len, pad_total, device)
+        gs, ge, live = pack_read_deltas(layout, target_id, start, end, flank_len)
+        return cls._from_flags_scan(
+            layout, scatter_events(pad_total, device, [(gs, live), (ge, -live)]),
+            flags, gaps, flank_len, issue_range,
         )
 
     @classmethod
@@ -310,14 +297,23 @@ class DeviceDepth(ResidentDepth):
         issue_range: tuple[int, int] = (-1, 0),
     ) -> "DeviceDepth":
         """Like ``from_reads`` but on an already-accumulated int32 read delta
-        on the device (the reference's pack<->scatter overlap entry)."""
+        on the device (the reference's pack<->scatter overlap entry).
+
+        A read delta's depth is never negative and at most the sum of its
+        positive entries; where that sum reaches ``PACKED_DEPTH_LIMIT`` the
+        packed word could wrap, so the flags scan runs instead.
+        """
         pad_total = int(delta.shape[0])
         if pad_total != cls.pad_total_for(layout.total_slots):
             raise ValueError(f"delta has {pad_total} slots, layout {layout.total_slots}")
+        if int(delta.clamp(min=0).sum(dtype=torch.int64)) >= PACKED_DEPTH_LIMIT:
+            flags = flags_for(layout, gaps, flank_len, pad_total, delta.device)
+            return cls._from_flags_scan(layout, delta, flags, gaps, flank_len,
+                                        issue_range)
         gap_s, gap_e = gap_interval_events(layout, gaps)
         _check_disjoint(gap_s, gap_e)
         val_s, val_e = _valid_intervals(layout, flank_len)
-        word = _scatter_events(pad_total, delta.device, [
+        word = scatter_events(pad_total, delta.device, [
             (gap_s, 2), (gap_e, -2), (val_s, 1), (val_e, -1),
         ])
         word += delta * 4
@@ -335,6 +331,20 @@ class DeviceDepth(ResidentDepth):
             layout, pad_total, raw, out_flags,
             out_flags if has_gaps else None, gaps, flank_len, lo, hi,
             gap_bit=8,
+        )
+
+    @classmethod
+    def _from_flags_scan(cls, layout, delta, flags, gaps, flank_len, issue_range):
+        """The flags scan of a plain read delta under ``flags_for`` bytes;
+        the flags become the gap marks (bit0) when there are gaps."""
+        lo, hi = issue_range
+        raw, out_flags = fused_depth_scan_flags(delta, flags, int(lo), int(hi))
+        pad_total = delta.shape[0]
+        del delta
+        has_gaps = gap_interval_events(layout, gaps)[0].shape[0] > 0
+        return cls._from_kernel_outputs(
+            layout, pad_total, raw, out_flags, flags if has_gaps else None,
+            gaps, flank_len, lo, hi, gap_bit=1,
         )
 
     @classmethod
@@ -447,7 +457,7 @@ class DeviceDepth(ResidentDepth):
         if self._change_idx is None or self._gather_pos is None:
             # masked/merged objects: recompute run boundaries with the same
             # batched readback the construction path uses
-            change = _change(self.array)
+            change = run_boundaries(self.array)
             (self._change_idx,), change_vals, offset_vals = (
                 _batched_edge_readback(self.array, self.layout, (change,), 0)
             )

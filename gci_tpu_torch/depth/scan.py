@@ -1,11 +1,17 @@
-"""The depth path's two scan kernels and their plain PyTorch versions.
+"""The depth path's scan kernels and their plain PyTorch versions.
 
-Counterpart of ``gci_tpu/depth/pallas_scan.py``:
+Counterpart of ``gci_tpu/depth/pallas_scan.py``; every function there that
+reaches ``pl.pallas_call`` has its wrapper here:
 
-* ``depth_scan`` — inclusive int32 prefix sum, wrapping mod 2^32
-  (pallas_scan.py ``depth_scan``);
+* ``depth_scan`` — inclusive int32 prefix sum, wrapping mod 2^32;
 * ``fused_depth_scan_packed`` — depth plus a flag byte from one packed event
-  word per slot (pallas_scan.py ``fused_depth_scan_packed``).
+  word per slot (the main path);
+* ``fused_depth_scan_flags`` — raw depth plus a flag byte from a read delta
+  and a gap/valid flag byte per slot (the path beyond the packed word's
+  depth bound);
+* ``fused_depth_scan_masked`` — the same math with unpacked int8 streams;
+* ``fused_depth_scan`` — depth and the edges of ``lo < depth <= hi`` inside
+  a valid stream, with no gap mask (``device.depth_and_edges_fused``).
 
 Each wrapper runs its plain version for a tensor on the CPU, and for a CUDA
 tensor launches its hand-written kernel (``gci_tpu_torch/csrc/scan.cu``) or
@@ -27,6 +33,17 @@ def _route(x: torch.Tensor) -> bool:
     if x.device.type == "cuda":
         return False
     raise ValueError(f"no kernel for device {x.device}")
+
+
+def rise_fall(m: torch.Tensor):
+    """Rise and fall bitmaps of a bool mask; the slot before 0 is outside."""
+    prev = torch.cat([torch.zeros(1, dtype=torch.bool, device=m.device), m[:-1]])
+    return m & ~prev, ~m & prev
+
+
+def run_boundaries(x: torch.Tensor) -> torch.Tensor:
+    """Run boundaries: x[i] != x[i-1], forced at position 0."""
+    return x != torch.cat([x[:1] - 1, x[:-1]])
 
 
 def depth_scan_torch(delta: torch.Tensor) -> torch.Tensor:
@@ -56,16 +73,11 @@ def fused_depth_scan_packed_torch(word: torch.Tensor, leftmost: int,
     gap = (sw & 2) != 0
     valid = (sw & 1) != 0
     masked = torch.where(gap, 0, raw)
-    m = (masked > leftmost) & (masked <= rightmost) & valid
-    prev = torch.cat([torch.zeros(1, dtype=torch.bool, device=m.device), m[:-1]])
-    rise = m & ~prev
-    fall = ~m & prev
-    prev_raw = torch.cat([raw[:1] - 1, raw[:-1]])  # forces change at 0
-    change = raw != prev_raw
+    rise, fall = rise_fall((masked > leftmost) & (masked <= rightmost) & valid)
     out = (
         rise.to(torch.int8)
         + fall.to(torch.int8) * 2
-        + change.to(torch.int8) * 4
+        + run_boundaries(raw).to(torch.int8) * 4
         + gap.to(torch.int8) * 8
     )
     return raw, out
@@ -80,3 +92,68 @@ def fused_depth_scan_packed(word: torch.Tensor, leftmost: int, rightmost: int):
     if _route(word):
         return fused_depth_scan_packed_torch(word, leftmost, rightmost)
     return kernels.launch_packed_scan(word, leftmost, rightmost)
+
+
+def fused_depth_scan_masked_torch(delta: torch.Tensor, gap: torch.Tensor,
+                                  valid: torch.Tensor, leftmost: int,
+                                  rightmost: int):
+    """Plain version of ``fused_depth_scan_masked`` (pallas_scan.py
+    ``fused_depth_scan_masked_xla``).
+
+    ``gap`` and ``valid`` are int8 streams, nonzero meaning true.  Returns
+    (raw depth int32; rise, fall and change as 0/1 int8): rise and fall are
+    the edges of the gap-masked depth in ``(leftmost, rightmost]`` inside
+    ``valid``; change marks the raw depth's run boundaries, forced at 0.
+    """
+    raw = torch.cumsum(delta, 0, dtype=torch.int32)
+    masked = torch.where(gap != 0, 0, raw)
+    rise, fall = rise_fall((masked > leftmost) & (masked <= rightmost) & (valid != 0))
+    return (raw, rise.to(torch.int8), fall.to(torch.int8),
+            run_boundaries(raw).to(torch.int8))
+
+
+def fused_depth_scan_masked(delta: torch.Tensor, gap: torch.Tensor,
+                            valid: torch.Tensor, leftmost: int, rightmost: int):
+    """(raw depth, rise, fall, change); see the plain version."""
+    if _route(delta):
+        return fused_depth_scan_masked_torch(delta, gap, valid, leftmost, rightmost)
+    return kernels.launch_masked_scan(delta, gap, valid, leftmost, rightmost)
+
+
+def fused_depth_scan_flags_torch(delta: torch.Tensor, flags: torch.Tensor,
+                                 leftmost: int, rightmost: int):
+    """Plain version of ``fused_depth_scan_flags`` (pallas_scan.py
+    ``fused_depth_scan_flags_xla``): the masked scan with gap = flags bit0
+    and valid = flags bit1, its three streams packed as out bits 0-2."""
+    raw, rise, fall, change = fused_depth_scan_masked_torch(
+        delta, flags & 1, flags & 2, leftmost, rightmost
+    )
+    return raw, rise + fall * 2 + change * 4
+
+
+def fused_depth_scan_flags(delta: torch.Tensor, flags: torch.Tensor,
+                           leftmost: int, rightmost: int):
+    """(raw depth int32, out flags int8: bit0 rise, bit1 fall, bit2 change)
+    of an int32 read delta under int8 flags (bit0 in-gap, bit1 scan-window
+    valid).  Exact at any depth: the sum wraps only mod 2^32."""
+    if _route(delta):
+        return fused_depth_scan_flags_torch(delta, flags, leftmost, rightmost)
+    return kernels.launch_flags_scan(delta, flags, leftmost, rightmost)
+
+
+def fused_depth_scan_torch(delta: torch.Tensor, valid: torch.Tensor,
+                           leftmost: int, rightmost: int):
+    """Plain version of ``fused_depth_scan`` (``_scan_kernel``; the JAX
+    package has no XLA twin): (depth int32; rise and fall as 0/1 int8) of
+    ``leftmost < depth <= rightmost`` inside ``valid != 0``."""
+    depth = torch.cumsum(delta, 0, dtype=torch.int32)
+    rise, fall = rise_fall((depth > leftmost) & (depth <= rightmost) & (valid != 0))
+    return depth, rise.to(torch.int8), fall.to(torch.int8)
+
+
+def fused_depth_scan(delta: torch.Tensor, valid: torch.Tensor, leftmost: int,
+                     rightmost: int):
+    """(depth, rise, fall) of a read delta; see the plain version."""
+    if _route(delta):
+        return fused_depth_scan_torch(delta, valid, leftmost, rightmost)
+    return kernels.launch_edges_scan(delta, valid, leftmost, rightmost)

@@ -30,7 +30,13 @@ NVCC_FLAGS = [
 ]
 
 # launches per kernel, counted by the launchers below and nowhere else
-LAUNCHES = {"depth_scan": 0, "fused_depth_scan_packed": 0}
+LAUNCHES = {
+    "depth_scan": 0,
+    "fused_depth_scan_packed": 0,
+    "fused_depth_scan_flags": 0,
+    "fused_depth_scan": 0,
+    "fused_depth_scan_masked": 0,
+}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -78,6 +84,18 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
+_P, _I64, _I32, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int
+# C entry -> argtypes: the streams' pointers (inputs, then outputs), the tile
+# scratch, n, then lo and hi where the kernel has them, the device and stream
+_SIGNATURES = {
+    "gci_depth_scan": [_P, _P, _P, _I64, _I, _P],
+    "gci_packed_scan": [_P, _P, _P, _P, _I64, _I32, _I32, _I, _P],
+    "gci_flags_scan": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I, _P],
+    "gci_edges_scan": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I, _P],
+    "gci_masked_scan": [_P] * 8 + [_I64, _I32, _I32, _I, _P],
+}
+
+
 def load() -> ctypes.CDLL:
     """Build if needed, then load and bind the kernel library (once)."""
     global _lib
@@ -86,82 +104,118 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            c = ctypes
-            lib.gci_scan_tile_slots.restype = c.c_int
+            lib.gci_scan_tile_slots.restype = ctypes.c_int
             lib.gci_scan_tile_slots.argtypes = []
-            lib.gci_cuda_error_string.restype = c.c_char_p
-            lib.gci_cuda_error_string.argtypes = [c.c_int]
-            lib.gci_depth_scan.restype = c.c_int
-            lib.gci_depth_scan.argtypes = [
-                c.c_void_p, c.c_void_p, c.c_void_p, c.c_int64, c.c_int,
-                c.c_void_p,
-            ]
-            lib.gci_packed_scan.restype = c.c_int
-            lib.gci_packed_scan.argtypes = [
-                c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_int64,
-                c.c_int32, c.c_int32, c.c_int, c.c_void_p,
-            ]
+            lib.gci_cuda_error_string.restype = ctypes.c_char_p
+            lib.gci_cuda_error_string.argtypes = [ctypes.c_int]
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
             _lib = lib
     return _lib
 
 
-def _check_input(x: torch.Tensor, what: str) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
-    if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
+def _check_stream(x: torch.Tensor, what: str, dtype: torch.dtype,
+                  like: torch.Tensor | None = None) -> None:
+    """Raise unless x is a contiguous 1-D CUDA tensor of ``dtype``, aligned
+    for the kernel's vector access (16 B for int32 streams, 8 B for int8),
+    and, given ``like``, of its length and on its device."""
+    if x.dtype != dtype or x.dim() != 1 or not x.is_contiguous():
         raise ValueError(
-            f"{what}: expected a contiguous 1-D int32 tensor, got "
+            f"{what}: expected a contiguous 1-D {dtype} tensor, got "
             f"{x.dtype} of shape {tuple(x.shape)}"
         )
-    if x.data_ptr() % 16:
-        raise ValueError(f"{what}: the kernel needs a 16-byte aligned buffer")
+    if like is not None and x.shape[0] != like.shape[0]:
+        raise ValueError(f"{what}: {x.shape[0]} slots, expected {like.shape[0]}")
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
+    if like is not None and x.device != like.device:
+        raise ValueError(f"{what}: on {x.device}, expected {like.device}")
+    align = 16 if dtype == torch.int32 else 8
+    if x.data_ptr() % align:
+        raise ValueError(f"{what}: the kernel needs a {align}-byte aligned buffer")
 
 
-def _scratch(lib: ctypes.CDLL, n: int, device: torch.device) -> torch.Tensor:
-    tile = lib.gci_scan_tile_slots()
-    return torch.empty(-(-n // tile), dtype=torch.int32, device=device)
-
-
-def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
+def _launch(name: str, entry: str, delta: torch.Tensor, streams, *scalars) -> None:
+    """Run C entry ``entry`` over delta's slots: ``streams`` are its tensors
+    in the entry's order, ``scalars`` follow n.  Counts one launch of
+    ``name``; raises on a CUDA error."""
+    n = delta.shape[0]
+    if n == 0:
+        return
+    lib = load()
+    scratch = torch.empty(-(-n // lib.gci_scan_tile_slots()), dtype=torch.int32,
+                          device=delta.device)
+    stream = torch.cuda.current_stream(delta.device).cuda_stream
+    rc = getattr(lib, entry)(
+        *(t.data_ptr() for t in streams), scratch.data_ptr(), n, *scalars,
+        delta.device.index, stream,
+    )
     if rc != 0:
         msg = lib.gci_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA launch failed ({rc}: {msg})")
+        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
+    LAUNCHES[name] += 1
+
+
+def _empty_bytes(like: torch.Tensor, count: int):
+    return [torch.empty(like.shape[0], dtype=torch.int8, device=like.device)
+            for _ in range(count)]
 
 
 def launch_depth_scan(x: torch.Tensor) -> torch.Tensor:
     """Inclusive int32 prefix sum of a CUDA tensor (kernel ``gci_depth_scan``)."""
-    _check_input(x, "depth_scan")
-    lib = load()
-    n = x.shape[0]
+    _check_stream(x, "depth_scan", torch.int32)
     out = torch.empty_like(x)
-    if n == 0:
-        return out
-    scratch = _scratch(lib, n, x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.gci_depth_scan(
-        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, x.device.index,
-        stream,
-    )
-    _raise_on(lib, rc, "depth_scan")
-    LAUNCHES["depth_scan"] += 1
+    _launch("depth_scan", "gci_depth_scan", x, [x, out])
     return out
 
 
 def launch_packed_scan(word: torch.Tensor, lo: int, hi: int):
     """(depth int32, flags int8) of a CUDA packed event word (``gci_packed_scan``)."""
-    _check_input(word, "fused_depth_scan_packed")
-    lib = load()
-    n = word.shape[0]
+    _check_stream(word, "fused_depth_scan_packed", torch.int32)
     depth = torch.empty_like(word)
-    flags = torch.empty(n, dtype=torch.int8, device=word.device)
-    if n == 0:
-        return depth, flags
-    scratch = _scratch(lib, n, word.device)
-    stream = torch.cuda.current_stream(word.device).cuda_stream
-    rc = lib.gci_packed_scan(
-        word.data_ptr(), depth.data_ptr(), flags.data_ptr(), scratch.data_ptr(),
-        n, int(lo), int(hi), word.device.index, stream,
-    )
-    _raise_on(lib, rc, "fused_depth_scan_packed")
-    LAUNCHES["fused_depth_scan_packed"] += 1
+    (flags,) = _empty_bytes(word, 1)
+    _launch("fused_depth_scan_packed", "gci_packed_scan", word, [word, depth, flags],
+            int(lo), int(hi))
     return depth, flags
+
+
+def launch_flags_scan(delta: torch.Tensor, flags: torch.Tensor, lo: int, hi: int):
+    """(raw depth int32, out flags int8) of a CUDA read delta under flag
+    bytes (``gci_flags_scan``)."""
+    what = "fused_depth_scan_flags"
+    _check_stream(delta, what, torch.int32)
+    _check_stream(flags, f"{what} flags", torch.int8, like=delta)
+    depth = torch.empty_like(delta)
+    (out,) = _empty_bytes(delta, 1)
+    _launch(what, "gci_flags_scan", delta, [delta, flags, depth, out], int(lo), int(hi))
+    return depth, out
+
+
+def launch_edges_scan(delta: torch.Tensor, valid: torch.Tensor, lo: int, hi: int):
+    """(depth int32, rise int8, fall int8) of a CUDA read delta under a
+    valid stream (``gci_edges_scan``)."""
+    what = "fused_depth_scan"
+    _check_stream(delta, what, torch.int32)
+    _check_stream(valid, f"{what} valid", torch.int8, like=delta)
+    depth = torch.empty_like(delta)
+    rise, fall = _empty_bytes(delta, 2)
+    _launch(what, "gci_edges_scan", delta, [delta, valid, depth, rise, fall],
+            int(lo), int(hi))
+    return depth, rise, fall
+
+
+def launch_masked_scan(delta: torch.Tensor, gap: torch.Tensor, valid: torch.Tensor,
+                       lo: int, hi: int):
+    """(raw depth int32, rise, fall, change int8) of a CUDA read delta under
+    gap and valid streams (``gci_masked_scan``)."""
+    what = "fused_depth_scan_masked"
+    _check_stream(delta, what, torch.int32)
+    _check_stream(gap, f"{what} gap", torch.int8, like=delta)
+    _check_stream(valid, f"{what} valid", torch.int8, like=delta)
+    depth = torch.empty_like(delta)
+    rise, fall, change = _empty_bytes(delta, 3)
+    _launch(what, "gci_masked_scan", delta,
+            [delta, gap, valid, depth, rise, fall, change], int(lo), int(hi))
+    return depth, rise, fall, change

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from gci_tpu.depth.accum import GenomeLayout, accumulate_depth_numpy, depth_dict_from_flat
 from gci_tpu.depth.fused import DeviceDepth as JaxDeviceDepth
+from gci_tpu.intervals.collapse import collapse_depth_runs
 from gci_tpu_torch.depth import device as tdevice
 from gci_tpu_torch.depth.fused import DeviceDepth, compact_indices
 
@@ -143,14 +144,173 @@ def test_overlapping_gaps_are_refused(rng):
                                gaps={"a": [(100, 300), (200, 400)]}, device=CPU)
 
 
-def test_packed_depth_limit_is_not_ported(monkeypatch, rng):
+# ---------------------------------------------------------------------------
+# the flags scan beyond the packed word's depth bound
+# ---------------------------------------------------------------------------
+
+def _lower_limits(monkeypatch, limit=0):
+    """Force both packages' constructors onto the flags scan (limit 0 takes
+    it even with no reads)."""
+    import gci_tpu.depth.fused as jax_fused
     import gci_tpu_torch.depth.fused as fused
 
-    layout = GenomeLayout.from_targets({"a": 1000})
-    tid, start, end = _reads(rng, layout, 10, 500)
-    monkeypatch.setattr(fused, "PACKED_DEPTH_LIMIT", 5)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DeviceDepth.from_reads(layout, tid, start, end, 15, device=CPU)
+    monkeypatch.setattr(fused, "PACKED_DEPTH_LIMIT", limit)
+    monkeypatch.setattr(jax_fused, "PACKED_DEPTH_LIMIT", limit)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("threshold", [0, 2])
+def test_fallback_flags_path_matches_packed_and_jax(rng, monkeypatch, case, threshold):
+    """from_reads at the lowered limit against the packed path and against
+    gci_tpu's forced fallback (test_fused_backend.py:235-261)."""
+    targets, n, max_start, gaps = CASES[case]
+    layout = GenomeLayout.from_targets(targets)
+    tid, start, end = _reads(rng, layout, n, max_start)
+    kw = dict(gaps=gaps, issue_range=(-1, threshold))
+    packed = DeviceDepth.from_reads(layout, tid, start, end, 15, device=CPU, **kw)
+    _lower_limits(monkeypatch)
+    got = DeviceDepth.from_reads(layout, tid, start, end, 15, device=CPU, **kw)
+    ref = JaxDeviceDepth.from_reads(layout, tid, start, end, 15, **kw)
+    assert got.gap_bit == ref.gap_bit == 1
+    assert (got.gap_marks is None) == (ref.gap_marks is None) == (gaps is None)
+    if case == "gaps":
+        assert packed.gap_bit == 8
+    for other in (packed, ref):
+        _assert_dicts_equal(got.materialize_dict(), other.materialize_dict())
+        _assert_events_equal(got.to_events(), other.to_events())
+        for hi in (threshold, threshold + 1):
+            assert got.collapse_dict(-1, hi, 15) == other.collapse_dict(-1, hi, 15)
+        gm, om = got.mask_gaps(gaps), other.mask_gaps(gaps)
+        _assert_dicts_equal(gm.materialize_dict(), om.materialize_dict())
+        _assert_events_equal(gm.to_events(), om.to_events())
+        for hi in (threshold, threshold + 1):
+            assert gm.collapse_dict(-1, hi, 15) == om.collapse_dict(-1, hi, 15)
+
+
+def test_fallback_takes_the_flags_kernel(rng, monkeypatch):
+    """At the limit from_reads runs the flags scan and not the packed one,
+    and counts reads, not depth: limit - 1 reads stay packed."""
+    import gci_tpu_torch.depth.fused as fused
+
+    calls = []
+    for name in ("fused_depth_scan_flags", "fused_depth_scan_packed"):
+        real = getattr(fused, name)
+        monkeypatch.setattr(fused, name, lambda *a, _n=name, _f=real: (calls.append(_n), _f(*a))[1])
+    layout = GenomeLayout.from_targets({"a": 3000})
+    tid, start, end = _reads(rng, layout, 20, 2000)
+    monkeypatch.setattr(fused, "PACKED_DEPTH_LIMIT", 20)
+    DeviceDepth.from_reads(layout, tid, start, end, 15, device=CPU)
+    monkeypatch.setattr(fused, "PACKED_DEPTH_LIMIT", 21)
+    DeviceDepth.from_reads(layout, tid, start, end, 15, device=CPU)
+    assert calls == ["fused_depth_scan_flags", "fused_depth_scan_packed"]
+
+
+def _delta_of(layout, tid, start, end):
+    gs, ge, live = tdevice.pack_read_deltas(layout, tid, start, end, 15)
+    delta = np.zeros(DeviceDepth.pad_total_for(layout.total_slots), np.int32)
+    np.add.at(delta, gs, live)
+    np.add.at(delta, ge, -live)
+    return delta
+
+
+@pytest.mark.parametrize("at_limit", [True, False])
+def test_from_delta_guard_matches_from_reads(rng, monkeypatch, at_limit):
+    """from_delta takes the flags scan once the sum of its positive deltas
+    reaches the limit, and builds the same value as from_reads on the packed
+    path and as gci_tpu's from_delta (test_fused_backend.py:264-294)."""
+    import gci_tpu_torch.depth.fused as fused
+
+    layout = GenomeLayout.from_targets({"a": 6000, "b": 2000})
+    tid, start, end = _reads(rng, layout, 350, 1500, span=(40, 400))
+    gaps = {"a": [(500, 700)]}
+    packed = DeviceDepth.from_reads(layout, tid, start, end, 15, gaps=gaps, device=CPU)
+    delta = _delta_of(layout, tid, start, end)
+    jax_pad = JaxDeviceDepth.pad_total_for(layout.total_slots) - delta.shape[0]
+    ref = JaxDeviceDepth.from_delta(layout, jnp.asarray(np.pad(delta, (0, jax_pad))), 15,
+                                    gaps=gaps)
+    bound = int(np.clip(delta, 0, None).sum())
+    monkeypatch.setattr(fused, "PACKED_DEPTH_LIMIT", bound if at_limit else bound + 1)
+    got = DeviceDepth.from_delta(layout, torch.from_numpy(delta), 15, gaps=gaps)
+    assert got.gap_bit == (1 if at_limit else 8)
+    for other in (packed, ref):
+        _assert_dicts_equal(got.materialize_dict(), other.materialize_dict())
+        assert got.mask_gaps(gaps).collapse_dict(-1, 0, 15) == (
+            other.mask_gaps(gaps).collapse_dict(-1, 0, 15)
+        )
+        _assert_events_equal(got.to_events(), other.to_events())
+        _assert_events_equal(got.mask_gaps(gaps).to_events(), other.mask_gaps(gaps).to_events())
+
+
+def test_from_delta_guard_stops_the_packed_word_wrapping():
+    """A depth past the limit (2^30 + 3 over 50 slots) wraps the packed
+    word: scanned unguarded it reads back as depth 3.  The guarded
+    from_delta takes the flags scan and keeps the depth exact."""
+    from gci_tpu_torch.depth.fused import PACKED_DEPTH_LIMIT
+    from gci_tpu_torch.depth.scan import fused_depth_scan_packed_torch
+
+    layout = GenomeLayout.from_targets({"a": 200})
+    deep = (1 << 30) + 3
+    assert deep >= PACKED_DEPTH_LIMIT
+    delta = np.zeros(layout.total_slots, np.int32)
+    delta[40], delta[90] = deep, -deep
+    delta[60], delta[150] = 2, -2
+    want = np.cumsum(delta).astype(np.int32)[:200]  # target "a", not its end slot
+    unguarded, _ = fused_depth_scan_packed_torch(torch.from_numpy(delta) * 4, -1, 0)
+    assert unguarded[40].item() == 3 and want[40] == deep
+    gaps = {"a": [(80, 120)]}
+    got = DeviceDepth.from_delta(layout, torch.from_numpy(delta), 15, gaps=gaps)
+    assert got.gap_bit == 1
+    np.testing.assert_array_equal(got.materialize_dict()["a"], want)
+    np.testing.assert_array_equal(got.to_events()["a"].materialize(), want)
+    masked = want.copy()
+    masked[80:120] = 0
+    np.testing.assert_array_equal(got.mask_gaps(gaps).materialize_dict()["a"], masked)
+    assert got.mask_gaps(gaps).collapse_dict(-1, 2, 15)["a"] == collapse_depth_runs(
+        masked, -1, 2, 15
+    )
+
+
+# ---------------------------------------------------------------------------
+# depth_and_edges_fused (the single-chip fused entry of device.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hi", [0, 2])
+def test_depth_and_edges_fused_matches_jax(rng, monkeypatch, hi):
+    """gci_tpu's entry runs its Pallas kernel in interpret mode here, on
+    8-row chunks (the axis padded to 1024 slots)."""
+    import functools
+
+    from gci_tpu.depth import device as jdevice
+    from gci_tpu.depth import pallas_scan
+
+    monkeypatch.setattr(pallas_scan, "fused_depth_scan", functools.partial(
+        pallas_scan.fused_depth_scan, rows=8, interpret=True))
+    layout = GenomeLayout.from_targets({"a": 5000, "t": 20, "b": 2900})
+    total = layout.total_slots + (-layout.total_slots) % 1024
+    tid, start, end = _reads(rng, layout, 300, 2500)
+    gs, ge, live = tdevice.pack_read_deltas(layout, tid, start, end, 15, pad_to=320)
+    valid = tdevice.build_scan_valid(layout, 15, pad_to=total).astype(np.int8)
+    got = tdevice.depth_and_edges_fused(gs, ge, live, valid, -1, hi, total, device=CPU)
+    want = jdevice.depth_and_edges_fused(
+        jnp.asarray(gs), jnp.asarray(ge), jnp.asarray(live), jnp.asarray(valid), -1, hi, total
+    )
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(
+        got[0][: layout.total_slots].numpy(),
+        accumulate_depth_numpy(layout, tid, start, end, 15),
+    )
+
+
+def test_depth_and_edges_fused_refuses_out_of_range_reads(rng):
+    """gci_tpu drops such indices silently; the port raises."""
+    layout = GenomeLayout.from_targets({"a": 3000})
+    tid, start, end = _reads(rng, layout, 30, 2000)
+    gs, ge, live = tdevice.pack_read_deltas(layout, tid, start, end, 15)
+    valid = np.ones(layout.total_slots, np.int8)
+    with pytest.raises(IndexError):
+        tdevice.depth_and_edges_fused(gs, ge, live, valid[:-1000], -1, 0,
+                                      layout.total_slots - 1000, device=CPU)
 
 
 def test_compact_indices_matches_jax(rng):
@@ -205,3 +365,30 @@ def test_device_depth_on_cuda_matches_cpu(rng):
     for hi in (1, 2):
         assert gm.collapse_dict(-1, hi, 15) == wm.collapse_dict(-1, hi, 15)
     _assert_events_equal(gm.maximum(gm).to_events(), wm.maximum(wm).to_events())
+
+
+@pytest.mark.cuda
+def test_fallback_on_cuda_matches_cpu(rng, monkeypatch):
+    """The flags-scan construction on the card (K3, K2) against the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    _lower_limits(monkeypatch)
+    targets, n, max_start, gaps = CASES["gaps"]
+    layout = GenomeLayout.from_targets(targets)
+    tid, start, end = _reads(rng, layout, n, max_start)
+    got = DeviceDepth.from_reads(layout, tid, start, end, 15, gaps=gaps,
+                                 issue_range=(-1, 1), device=cuda)
+    want = DeviceDepth.from_reads(layout, tid, start, end, 15, gaps=gaps,
+                                  issue_range=(-1, 1), device=CPU)
+    assert got.gap_bit == want.gap_bit == 1
+    _assert_dicts_equal(got.materialize_dict(), want.materialize_dict())
+    _assert_events_equal(got.to_events(), want.to_events())
+    gm, wm = got.mask_gaps(gaps), want.mask_gaps(gaps)
+    for hi in (1, 2):
+        assert gm.collapse_dict(-1, hi, 15) == wm.collapse_dict(-1, hi, 15)
+    delta = torch.from_numpy(_delta_of(layout, tid, start, end))
+    got = DeviceDepth.from_delta(layout, delta.to(cuda), 15, gaps=gaps)
+    want = DeviceDepth.from_delta(layout, delta, 15, gaps=gaps)
+    assert got.gap_bit == want.gap_bit == 1
+    _assert_events_equal(got.to_events(), want.to_events())

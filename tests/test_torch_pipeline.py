@@ -94,6 +94,32 @@ def test_dual_type_regions_threshold_matches_jax(inputs, tmp_path):
     )
 
 
+def test_flags_fallback_dual_type_matches_jax(inputs, tmp_path, monkeypatch):
+    """Both packages forced past the packed word's depth bound: every read
+    set takes the flags scan, and the outputs stay byte-identical."""
+    import gci_tpu.depth.fused as jax_fused
+    import gci_tpu_torch.depth.fused as fused
+
+    monkeypatch.setattr(jax_fused, "PACKED_DEPTH_LIMIT", 1)
+    monkeypatch.setattr(fused, "PACKED_DEPTH_LIMIT", 1)
+    scans = []
+    real = fused.fused_depth_scan_flags
+    monkeypatch.setattr(fused, "fused_depth_scan_flags",
+                        lambda *a: (scans.append(1), real(*a))[1])
+    d_ref, d_got = str(tmp_path / "ref"), str(tmp_path / "got")
+    kw = dict(hifi=[inputs["hifi"]], nano=[inputs["nano"]], reference=inputs["ref"],
+              prefix="F", regions=inputs["regions"], threshold=1)
+    jax_run_gci(directory=d_ref, depth_backend="device", **kw)
+    run_gci(directory=d_got, depth_backend="device", torch_device="cpu", **kw)
+    assert len(scans) == 2  # HiFi and ONT
+    _diff_outputs(
+        d_ref, d_got,
+        ["F_hifi.depth.gz", "F_nano.depth.gz", "F_two_type.depth.gz",
+         "F_hifi.1.depth.bed", "F_nano.1.depth.bed", "F_two_type.1.depth.bed",
+         "F.gci", "F.regions.gci", "F.gaps.bed"],
+    )
+
+
 def test_chrs_with_bam_and_paf_matches_jax(inputs, tmp_path):
     d_ref, d_got = str(tmp_path / "ref"), str(tmp_path / "got")
     kw = dict(hifi=[inputs["hifi"], inputs["paf"]], reference=inputs["ref"],
