@@ -10,11 +10,14 @@ Phases, each printing its results:
 3. each of the five kernels against its plain PyTorch version at MH63 size
    (395,765,512 genome slots: 12 chromosomes, 395,765,500 bp), on read
    deltas and on +-2^23 deltas with random truth bytes, exact equality
-   required, with the median of 5 CUDA-event timings of each; the three
-   unpacked-stream kernels against each other and against the packed one;
-   the on-device compaction as built (depth_scan + searchsorted) beside
-   torch.nonzero; and a small DeviceDepth, on the packed and on the flags
-   path, against the numpy depth oracle;
+   required, with the median of 5 CUDA-event timings of each; depth_scan in
+   both its forms (int32 deltas and bitmaps; int8 bool bitmaps and
+   full-range bytes), each also launched 20 times on one input, every
+   result exact (a look-back ordering fault shows only sometimes); the
+   three unpacked-stream kernels against each other and against the packed
+   one; the on-device compaction as built (the int8 depth_scan of the
+   bitmap + searchsorted) beside torch.nonzero; and a small DeviceDepth, on
+   the packed and on the flags path, against the numpy depth oracle;
 4. the public entries of the two kernels no CLI path runs:
    ``depth.device.depth_and_edges_fused`` (fused_depth_scan) and
    ``depth.scan.fused_depth_scan_masked``, at MH63 size, each checked
@@ -82,6 +85,7 @@ CHROM_WEIGHTS = [43.3, 35.9, 36.4, 35.5, 29.9, 31.2, 29.7, 28.4, 23.0, 23.2, 31.
 N_HIFI, HIFI_MEAN, HIFI_SD = 200_000, 18_000, 4_000
 N_ONT, ONT_MEAN, ONT_SD = 100_000, 25_000, 10_000
 TIMED_RUNS = 5
+REPEATED_LAUNCHES = 20  # of each depth_scan form on one input
 PREFIX = "MH63"
 OUTPUTS = [
     f"{PREFIX}_hifi.depth.gz", f"{PREFIX}_nano.depth.gz", f"{PREFIX}_two_type.depth.gz",
@@ -94,14 +98,17 @@ KERNEL_ROWS = {
     # wrapper name -> (the TPU kernel it replaces, the path whose launches count)
     "fused_depth_scan_packed": ("gci_tpu/depth/pallas_scan.py:605", "packed"),
     "depth_scan": ("gci_tpu/depth/pallas_scan.py:208", "packed"),
+    "depth_scan_int8": ("gci_tpu/depth/pallas_scan.py:208", "packed"),
     "fused_depth_scan_flags": ("gci_tpu/depth/pallas_scan.py:467", "flags"),
     "fused_depth_scan": ("gci_tpu/depth/pallas_scan.py:252", "entries"),
     "fused_depth_scan_masked": ("gci_tpu/depth/pallas_scan.py:336", "entries"),
 }
 # the kernels each CLI path must launch, and the scan it must not
 PATH_KERNELS = {
-    "packed": (("fused_depth_scan_packed", "depth_scan"), "fused_depth_scan_flags"),
-    "flags": (("fused_depth_scan_flags", "depth_scan"), "fused_depth_scan_packed"),
+    "packed": (("fused_depth_scan_packed", "depth_scan", "depth_scan_int8"),
+               "fused_depth_scan_flags"),
+    "flags": (("fused_depth_scan_flags", "depth_scan", "depth_scan_int8"),
+              "fused_depth_scan_packed"),
 }
 WIDE = (-(2**30), 2**30)  # an issue range holding about half of random depths
 
@@ -156,6 +163,21 @@ def hold(name: str, kernel, plain, cases, timed) -> dict:
     log(f"[kernels] {name} exact on {len(cases)} inputs, {ms:.4f} ms vs plain "
         f"{plain_ms:.4f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def hold_repeats(name: str, x: torch.Tensor) -> None:
+    """REPEATED_LAUNCHES launches of depth_scan on x, back to back, then
+    every result against the plain one."""
+    want = depth_scan_torch(x)
+    before = kernels.LAUNCHES[name]
+    got = [depth_scan(x) for _ in range(REPEATED_LAUNCHES)]
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES[name] == before + REPEATED_LAUNCHES,
+          f"{name} repeated launches not counted")
+    bad = [k for k, g in enumerate(got) if not torch.equal(g, want)]
+    check(not bad, f"{name} != plain on repeated launches {bad}")
+    log(f"[kernels] {name} exact on all {REPEATED_LAUNCHES} back-to-back launches "
+        f"on one input")
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +332,7 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
         [(word, -1, 0), (word, -1, 1)], (word, -1, 0),
     )
 
-    # compaction as built (depth_scan + searchsorted) vs torch.nonzero
+    # compaction as built (int8 depth_scan + searchsorted) vs torch.nonzero
     k1_depth, k1_flags = fused_depth_scan_packed(word, -1, 0)
     del word
     bits = (k1_flags & 4) != 0
@@ -319,18 +341,28 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
           "compaction != torch.nonzero")
     c_ms = median_ms(lambda: _compact(bits, count))
     nz_ms = median_ms(lambda: torch.nonzero(bits).squeeze(1))
-    log(f"[kernels] compaction of {count} change bits: depth_scan+searchsorted "
+    log(f"[kernels] compaction of {count} change bits: int8 depth_scan+searchsorted "
         f"{c_ms:.4f} ms, torch.nonzero {nz_ms:.4f} ms")
     del bits
 
-    # K2 on +-2^23 deltas (wraps mod 2^32) and on a 0/1 bitmap
+    # K2's int32 form on +-2^23 deltas (wraps mod 2^32) and on a 0/1 bitmap;
+    # its int8 form on a bool bitmap viewed as int8 and on bytes in
+    # [-128, 127] (sign-extended)
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
     xs = [torch.randint(lo, hi, (n,), dtype=torch.int32, device=dev, generator=g)
           for lo, hi in ((-(2**23), 2**23), (0, 2))]
     rows["depth_scan"] = hold("depth_scan", depth_scan, depth_scan_torch,
                               [(x,) for x in xs], (xs[1],))
-    del xs
+    bs = [xs[1].to(torch.bool).view(torch.int8),
+          torch.randint(-128, 128, (n,), dtype=torch.int32, device=dev,
+                        generator=g).to(torch.int8)]
+    rows["depth_scan_int8"] = hold("depth_scan_int8", depth_scan, depth_scan_torch,
+                                   [(b,) for b in bs], (bs[0],))
+    hold_repeats("depth_scan", xs[0])
+    hold_repeats("depth_scan_int8", bs[1])
+    del xs, bs
+    torch.cuda.empty_cache()
 
     # K3, K5, K4 on the same reads and intervals as K1 (a plain delta and
     # flag bytes), and on +-2^23 deltas under random truth bytes

@@ -1,8 +1,50 @@
 // Hopper (sm_90a) kernels of the single-GPU depth path.
 //
 // Every kernel here is an inclusive int32 prefix sum over the concatenated
-// genome axis, wrapping mod 2^32, plus an epilogue, and all share one
-// reduce-then-scan skeleton:
+// genome axis, wrapping mod 2^32, plus an epilogue.  Two skeletons carry
+// them.
+//
+// depth_scan (the plain prefix sum) is a single-pass scan with decoupled
+// look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan with
+// Decoupled Look-back", NVIDIA 2016), one launch per call:
+//
+//   * each block takes the next tile of kScanTile slots from an atomic
+//     counter, so it only ever waits on tiles whose blocks are already
+//     running (handing tiles out by blockIdx.x could make a resident block
+//     spin on a tile that was never scheduled);
+//   * it loads its tile once into registers, scans it with warp shuffles,
+//     and publishes the tile's aggregate in the tile's status word;
+//   * one warp walks back over the predecessors' status words 32 at a time,
+//     summing aggregates until it meets an inclusive prefix, then publishes
+//     the tile's own inclusive prefix;
+//   * every thread adds the tile's exclusive prefix and writes its slots once.
+//
+// A status word is one 64-bit word, state in the high half (invalid 0,
+// aggregate 1, inclusive prefix 2) and the uint32 value in the low half,
+// written by one st.release.gpu and read by ld.acquire.gpu, so a reader never
+// sees a state without its value and L1 never serves a stale word.
+//
+// depth_scan replaces gci_tpu/depth/pallas_scan.py:depth_scan (the prefix sum
+// behind every on-device compaction and the flag-byte build).  It is bound by
+// device-memory bytes: 8 B per slot for an int32 input (4 in, 4 out) and 5 B
+// for the int8 form (1 in, sign-extended, 4 out), against 12 B for the two
+// passes of the other kernels below.  The int8 form lets a compaction scan a
+// bool bitmap as it lies, with no int32 copy of it.  What the design does
+// about the bytes:
+//
+//   * warp-striped tiles: lane l holds slots 4l..4l+3 of each 128-slot
+//     column of its warp, so every load and store of a warp is one
+//     contiguous 512-byte block (int8: each lane loads 16-byte words and
+//     regroups the bytes by shuffle).  With each thread owning consecutive
+//     slots instead, a warp's store spread over 2 KB and the scan ran ~15%
+//     slower on the H100;
+//   * large tiles (8192 slots, 64 a thread): a block waits in the look-back
+//     with its tile held in registers and no loads in flight, so the fewer
+//     tiles, the less of that wait.  Wider look-back windows (up to 512
+//     status words a round trip), back-off in the spin and persistent blocks
+//     that load the next tile during the look-back were each slower there.
+//
+// The other four kernels keep a reduce-then-scan skeleton:
 //
 //   1. tile_sums_kernel   one block per tile of kTile slots writes the tile's
 //                         sum (one read of the input);
@@ -18,11 +60,6 @@
 // stays in registers.  The prefix just before a thread's first slot is the
 // thread's exclusive carry, so the predecessor's depth, which the epilogues
 // compare against, needs no neighbour exchange.
-//
-// depth_scan replaces gci_tpu/depth/pallas_scan.py:depth_scan (the prefix sum
-// behind every on-device compaction).  It is bound by device-memory bytes:
-// 4 B in and 4 B out per slot, plus the 4 B/slot re-read of pass 1.  The
-// design keeps every access a full 16-byte vector and does no other work.
 //
 // fused_depth_scan_packed replaces pallas_scan.py:fused_depth_scan_packed
 // (_scan_packed_kernel).  It is bound by device-memory bytes: 4 B in and 5 B
@@ -41,9 +78,6 @@
 // valid state of a thread's predecessor is not in the prefix, so each
 // thread reads it with one byte load at first - 1 (the TPU kernels prefetch
 // the same byte per chunk as a scalar).
-//
-// A single-pass decoupled look-back scan would delete pass 1's re-read; that
-// is later work.
 
 #include <cstdint>
 
@@ -57,6 +91,17 @@ constexpr int kTile = kThreads * kItems;
 constexpr int kCarryThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kItems == 8, "byte streams move as one 8-byte word per thread");
+
+// depth_scan's look-back tiles: each warp owns kScanWarpSlots consecutive
+// slots, as kScanCols columns of 128; lane l holds slots 4l..4l+3 of each
+// column, so every warp access is one contiguous block
+constexpr int kScanThreads = 128;
+constexpr int kScanCols = 16;
+constexpr int kScanWarpSlots = 128 * kScanCols;
+constexpr int kScanTile = kScanThreads / 32 * kScanWarpSlots;
+// status-word states (the word's high half; 0 is invalid)
+constexpr unsigned long long kTileAggregate = 1;
+constexpr unsigned long long kTileInclusive = 2;
 
 __device__ __forceinline__ void load_items(const int32_t* __restrict__ in,
                                            int64_t first, int64_t n,
@@ -239,20 +284,217 @@ tile_carry_kernel(uint32_t* __restrict__ sums, int64_t n_tiles) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-scan_tiles_kernel(const int32_t* __restrict__ in,
-                  const uint32_t* __restrict__ carry, int64_t n,
-                  int32_t* __restrict__ out) {
-  __shared__ uint32_t warp_sums[kThreads / 32];
-  const int64_t first = thread_first();
-  uint32_t v[kItems];
-  uint32_t acc = thread_prefix(in, carry, first, n, v, warp_sums);
+// ---------------------------------------------------------------------------
+// depth_scan: single-pass decoupled look-back
+// ---------------------------------------------------------------------------
+
+// Column j of the lane's slots at `first` (= warp base + 4 * lane), four
+// int32 slots per column.
+__device__ __forceinline__ void load_scan_cols(const int32_t* __restrict__ in,
+                                               int64_t first, int64_t warp_end,
+                                               int64_t n,
+                                               uint32_t (&v)[kScanCols][4]) {
+  if (warp_end <= n) {
+    int4 w[kScanCols];
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    acc += v[k];
-    v[k] = acc;
+    for (int j = 0; j < kScanCols; ++j) {
+      w[j] = *reinterpret_cast<const int4*>(in + first + 128 * j);
+    }
+#pragma unroll
+    for (int j = 0; j < kScanCols; ++j) {
+      v[j][0] = w[j].x; v[j][1] = w[j].y; v[j][2] = w[j].z; v[j][3] = w[j].w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kScanCols; ++j) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int64_t i = first + 128 * j + k;
+        v[j][k] = i < n ? static_cast<uint32_t>(in[i]) : 0u;
+      }
+    }
   }
-  store_items(out, first, n, v);
+}
+
+__device__ __forceinline__ uint32_t sign_extend(uint32_t word, int k) {
+  return static_cast<uint32_t>(
+      static_cast<int32_t>(static_cast<int8_t>(word >> (8 * k))));
+}
+
+// The same columns of an int8 stream.  Each lane loads 16-byte words of the
+// warp's bytes (lane l bytes 16l..16l+15 of every 512), and the four bytes of
+// column j come from lane 8 * (j % 4) + l / 4 by shuffle; each is
+// sign-extended.
+__device__ __forceinline__ void load_scan_cols(const int8_t* __restrict__ in,
+                                               int64_t first, int64_t warp_end,
+                                               int64_t n,
+                                               uint32_t (&v)[kScanCols][4]) {
+  static_assert(kScanCols % 4 == 0, "int8 columns move as whole 16-byte words");
+  const int lane = threadIdx.x & 31;
+  if (warp_end <= n) {
+    const int8_t* warp_in = in + first - 4 * lane;
+    int4 q[kScanCols / 4];
+#pragma unroll
+    for (int m = 0; m < kScanCols / 4; ++m) {
+      q[m] = *reinterpret_cast<const int4*>(warp_in + 512 * m + 16 * lane);
+    }
+#pragma unroll
+    for (int j = 0; j < kScanCols; ++j) {
+      const int src = 8 * (j & 3) + (lane >> 2);
+      const int4 w = q[j >> 2];
+      const uint32_t x = __shfl_sync(kFull, static_cast<uint32_t>(w.x), src);
+      const uint32_t y = __shfl_sync(kFull, static_cast<uint32_t>(w.y), src);
+      const uint32_t z = __shfl_sync(kFull, static_cast<uint32_t>(w.z), src);
+      const uint32_t t = __shfl_sync(kFull, static_cast<uint32_t>(w.w), src);
+      const int part = lane & 3;
+      const uint32_t word = part == 0 ? x : part == 1 ? y : part == 2 ? z : t;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[j][k] = sign_extend(word, k);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kScanCols; ++j) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int64_t i = first + 128 * j + k;
+        v[j][k] = i < n ? static_cast<uint32_t>(static_cast<int32_t>(in[i])) : 0u;
+      }
+    }
+  }
+}
+
+// One 64-bit store of (state, value), ordered after every earlier write of
+// the thread.
+__device__ __forceinline__ void publish(unsigned long long* word,
+                                        unsigned long long state,
+                                        uint32_t value) {
+  const unsigned long long w = (state << 32) | value;
+  asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(word), "l"(w) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long observe(const unsigned long long* word) {
+  unsigned long long w;
+  asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(w) : "l"(word) : "memory");
+  return w;
+}
+
+// Exclusive prefix of tile `tile` (> 0), by one whole warp, from the status
+// words of its predecessors: lane l reads tile pred - l, nearest first.  The
+// warp sums the words up to the nearest inclusive prefix, re-reading any
+// of those still invalid until its tile has published; it never waits on a
+// word past that prefix.  Returned in every lane.
+__device__ __forceinline__ uint32_t look_back(const unsigned long long* status,
+                                              int64_t tile) {
+  const int lane = threadIdx.x & 31;
+  uint32_t exclusive = 0;
+  for (int64_t pred = tile - 1;; pred -= 32) {
+    const int64_t idx = pred - lane;
+    // before tile 0 there is nothing: an inclusive prefix of 0
+    unsigned long long w = idx >= 0 ? observe(status + idx) : kTileInclusive << 32;
+    unsigned inclusive;
+    int last;
+    while (true) {
+      inclusive = __ballot_sync(kFull, (w >> 32) == kTileInclusive);
+      last = inclusive ? __ffs(inclusive) - 1 : 31;
+      const bool waiting = lane <= last && (w >> 32) == 0;
+      if (!__any_sync(kFull, waiting)) break;
+      if (waiting) w = observe(status + idx);
+    }
+    uint32_t v = lane <= last ? static_cast<uint32_t>(w) : 0u;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+    exclusive += v;
+    if (inclusive) return exclusive;
+  }
+}
+
+// status holds one zeroed word per tile; next_tile is a zeroed counter.
+template <typename T>
+__global__ void __launch_bounds__(kScanThreads)
+lookback_scan_kernel(const T* __restrict__ in, int32_t* __restrict__ out,
+                     int64_t n, unsigned long long* status,
+                     unsigned int* next_tile) {
+  constexpr int kWarps = kScanThreads / 32;
+  __shared__ uint32_t warp_sums[kWarps];
+  __shared__ unsigned int tile_index;
+  __shared__ uint32_t tile_exclusive;
+  if (threadIdx.x == 0) tile_index = atomicAdd(next_tile, 1u);
+  __syncthreads();
+  const int64_t tile = tile_index;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t warp_first = tile * kScanTile + static_cast<int64_t>(warp) * kScanWarpSlots;
+  const int64_t first = warp_first + 4 * lane;
+  uint32_t v[kScanCols][4];
+  load_scan_cols(in, first, warp_first + kScanWarpSlots, n, v);
+
+  // each column's exclusive prefix within the warp's slots
+  uint32_t col_prefix[kScanCols];
+  uint32_t warp_total = 0;
+#pragma unroll
+  for (int j = 0; j < kScanCols; ++j) {
+    const uint32_t s = v[j][0] + v[j][1] + v[j][2] + v[j][3];
+    uint32_t inc = s;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc += y;
+    }
+    col_prefix[j] = warp_total + inc - s;
+    warp_total += __shfl_sync(kFull, inc, 31);
+  }
+  if (lane == 0) warp_sums[warp] = warp_total;
+  __syncthreads();
+
+  // warp 0: the warps' exclusive prefixes in place, the tile's aggregate,
+  // the look-back, the tile's inclusive prefix
+  if (warp == 0) {
+    const uint32_t w = lane < kWarps ? warp_sums[lane] : 0u;
+    uint32_t inc = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc += y;
+    }
+    if (lane < kWarps) warp_sums[lane] = inc - w;
+    const uint32_t total = __shfl_sync(kFull, inc, kWarps - 1);
+    if (tile == 0) {
+      if (lane == 0) {
+        publish(status, kTileInclusive, total);
+        tile_exclusive = 0;
+      }
+    } else {
+      if (lane == 0) publish(status + tile, kTileAggregate, total);
+      const uint32_t exclusive = look_back(status, tile);
+      if (lane == 0) {
+        publish(status + tile, kTileInclusive, exclusive + total);
+        tile_exclusive = exclusive;
+      }
+    }
+  }
+  __syncthreads();
+
+  const uint32_t prefix = tile_exclusive + warp_sums[warp];
+  const bool whole = warp_first + kScanWarpSlots <= n;
+#pragma unroll
+  for (int j = 0; j < kScanCols; ++j) {
+    uint32_t acc = prefix + col_prefix[j];
+    uint32_t o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      acc += v[j][k];
+      o[k] = acc;
+    }
+    const int64_t i = first + 128 * j;
+    if (whole) {
+      *reinterpret_cast<int4*>(out + i) = make_int4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (i + k < n) out[i + k] = static_cast<int32_t>(o[k]);
+      }
+    }
+  }
 }
 
 // Issue-interval membership of one packed prefix word sw:
@@ -449,31 +691,54 @@ int launch_tile_carries(const int32_t* in, uint32_t* tile_scratch, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One launch of the look-back scan over n > 0 slots; status holds
+// ceil(n / kScanTile) + 1 zeroed 64-bit words: the tiles' status words, then
+// the tile counter.
+template <typename T>
+int launch_lookback_scan(const T* in, int32_t* out, unsigned long long* status,
+                         int64_t n, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = (n + kScanTile - 1) / kScanTile;
+  lookback_scan_kernel<T><<<static_cast<unsigned>(tiles), kScanThreads, 0, stream>>>(
+      in, out, n, status, reinterpret_cast<unsigned int*>(status + tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Every entry below takes n slots (n > 0 launches), ceil(n / tile) uint32
-// words of tile_scratch, the CUDA device and stream, and returns a
-// cudaError_t.  int32 streams must be 16-byte aligned, int8 streams 8-byte
-// aligned.
+// Every entry below takes n slots (n > 0 launches), its scratch, the CUDA
+// device and stream, and returns a cudaError_t.  The depth_scan entries take
+// ceil(n / gci_depth_scan_tile_slots()) + 1 zeroed 64-bit status words and a
+// 16-byte aligned input of either type; the others ceil(n /
+// gci_scan_tile_slots()) uint32 words of tile_scratch, 16-byte aligned int32
+// streams and 8-byte aligned int8 streams.
 extern "C" {
 
 // Slots per tile: the caller allocates ceil(n / tile) uint32 words of scratch.
 int gci_scan_tile_slots() { return kTile; }
+
+// Slots per look-back tile of the depth_scan entries.
+int gci_depth_scan_tile_slots() { return kScanTile; }
 
 const char* gci_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // out[i] = in[0] + ... + in[i] (mod 2^32).
-int gci_depth_scan(const int32_t* in, int32_t* out, uint32_t* tile_scratch,
+int gci_depth_scan(const int32_t* in, int32_t* out, unsigned long long* status,
                    int64_t n, int device, void* stream) {
   if (n <= 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  int rc = launch_tile_carries(in, tile_scratch, n, device, s);
-  if (rc != 0) return rc;
-  scan_tiles_kernel<<<static_cast<unsigned>(tiles_for(n)), kThreads, 0, s>>>(
-      in, tile_scratch, n, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_lookback_scan(in, out, status, n, device,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// out[i] = in[0] + ... + in[i] (mod 2^32), each int8 sign-extended.
+int gci_depth_scan_i8(const int8_t* in, int32_t* out, unsigned long long* status,
+                      int64_t n, int device, void* stream) {
+  if (n <= 0) return 0;
+  return launch_lookback_scan(in, out, status, n, device,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // Packed-word scan: depth (int32) and flag byte (bit0 rise, bit1 fall,

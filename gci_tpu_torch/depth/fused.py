@@ -100,8 +100,10 @@ def valid_marks_for(layout: GenomeLayout, flank_len: int, pad_total: int,
 def _compact(bits: torch.Tensor, count: int) -> torch.Tensor:
     """Sorted indices of the ``count`` set entries of a bool bitmap: the
     k-th is ``searchsorted(prefix_sum(bits), k)`` (the reference's
-    ``_compact_fn``).  The int32 prefix buffer dies on return."""
-    pos = _local_prefix_sum(bits.to(torch.int32))
+    ``_compact_fn``).  The bitmap is scanned as the int8 bytes it is (a free
+    view), so no int32 copy of it is made; the int32 prefix buffer dies on
+    return."""
+    pos = _local_prefix_sum(bits.view(torch.int8))
     k = torch.arange(1, count + 1, dtype=torch.int32, device=bits.device)
     return torch.searchsorted(pos, k)
 

@@ -3,7 +3,8 @@
 Counterpart of ``gci_tpu/depth/pallas_scan.py``; every function there that
 reaches ``pl.pallas_call`` has its wrapper here:
 
-* ``depth_scan`` — inclusive int32 prefix sum, wrapping mod 2^32;
+* ``depth_scan`` — inclusive int32 prefix sum of int32 or int8 slots,
+  wrapping mod 2^32;
 * ``fused_depth_scan_packed`` — depth plus a flag byte from one packed event
   word per slot (the main path);
 * ``fused_depth_scan_flags`` — raw depth plus a flag byte from a read delta
@@ -46,13 +47,25 @@ def run_boundaries(x: torch.Tensor) -> torch.Tensor:
     return x != torch.cat([x[:1] - 1, x[:-1]])
 
 
+# input types of depth_scan: int32 deltas, and int8 bitmaps (a bool bitmap
+# viewed as int8) for the compaction
+SCAN_DTYPES = (torch.int32, torch.int8)
+
+
 def depth_scan_torch(delta: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``depth_scan``: int32 cumsum that wraps like jnp's."""
+    """Plain version of ``depth_scan``: int32 cumsum that wraps like jnp's
+    (int8 slots are sign-extended, as ``jnp.cumsum(x.astype(jnp.int32))``)."""
     return torch.cumsum(delta, 0, dtype=torch.int32)
 
 
 def depth_scan(delta: torch.Tensor) -> torch.Tensor:
-    """Inclusive int32 prefix sum of a 1-D int32 tensor (wraps mod 2^32)."""
+    """Inclusive int32 prefix sum of a 1-D int32 or int8 tensor (wraps mod
+    2^32).  Other types and shapes raise ValueError on every device."""
+    if delta.dtype not in SCAN_DTYPES or delta.dim() != 1:
+        raise ValueError(
+            f"depth_scan: expected a 1-D int32 or int8 tensor, got {delta.dtype} "
+            f"of shape {tuple(delta.shape)}"
+        )
     if _route(delta):
         return depth_scan_torch(delta)
     return kernels.launch_depth_scan(delta)

@@ -32,6 +32,7 @@ NVCC_FLAGS = [
 # launches per kernel, counted by the launchers below and nowhere else
 LAUNCHES = {
     "depth_scan": 0,
+    "depth_scan_int8": 0,
     "fused_depth_scan_packed": 0,
     "fused_depth_scan_flags": 0,
     "fused_depth_scan": 0,
@@ -85,10 +86,11 @@ def build(verbose: bool = False) -> Path:
 
 
 _P, _I64, _I32, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int
-# C entry -> argtypes: the streams' pointers (inputs, then outputs), the tile
+# C entry -> argtypes: the streams' pointers (inputs, then outputs), the
 # scratch, n, then lo and hi where the kernel has them, the device and stream
 _SIGNATURES = {
     "gci_depth_scan": [_P, _P, _P, _I64, _I, _P],
+    "gci_depth_scan_i8": [_P, _P, _P, _I64, _I, _P],
     "gci_packed_scan": [_P, _P, _P, _P, _I64, _I32, _I32, _I, _P],
     "gci_flags_scan": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I, _P],
     "gci_edges_scan": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I, _P],
@@ -104,8 +106,9 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.gci_scan_tile_slots.restype = ctypes.c_int
-            lib.gci_scan_tile_slots.argtypes = []
+            for name in ("gci_scan_tile_slots", "gci_depth_scan_tile_slots"):
+                getattr(lib, name).restype = ctypes.c_int
+                getattr(lib, name).argtypes = []
             lib.gci_cuda_error_string.restype = ctypes.c_char_p
             lib.gci_cuda_error_string.argtypes = [ctypes.c_int]
             for name, argtypes in _SIGNATURES.items():
@@ -117,10 +120,11 @@ def load() -> ctypes.CDLL:
 
 
 def _check_stream(x: torch.Tensor, what: str, dtype: torch.dtype,
-                  like: torch.Tensor | None = None) -> None:
+                  like: torch.Tensor | None = None, align: int | None = None) -> None:
     """Raise unless x is a contiguous 1-D CUDA tensor of ``dtype``, aligned
-    for the kernel's vector access (16 B for int32 streams, 8 B for int8),
-    and, given ``like``, of its length and on its device."""
+    for the kernel's vector access (``align`` bytes; by default 16 for int32
+    streams, 8 for int8), and, given ``like``, of its length and on its
+    device."""
     if x.dtype != dtype or x.dim() != 1 or not x.is_contiguous():
         raise ValueError(
             f"{what}: expected a contiguous 1-D {dtype} tensor, got "
@@ -132,21 +136,37 @@ def _check_stream(x: torch.Tensor, what: str, dtype: torch.dtype,
         raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
     if like is not None and x.device != like.device:
         raise ValueError(f"{what}: on {x.device}, expected {like.device}")
-    align = 16 if dtype == torch.int32 else 8
+    if align is None:
+        align = 16 if dtype == torch.int32 else 8
     if x.data_ptr() % align:
         raise ValueError(f"{what}: the kernel needs a {align}-byte aligned buffer")
 
 
-def _launch(name: str, entry: str, delta: torch.Tensor, streams, *scalars) -> None:
+def _tile_sums(lib: ctypes.CDLL, x: torch.Tensor) -> torch.Tensor:
+    """Scratch of the reduce-then-scan kernels: one uint32 per tile."""
+    return torch.empty(-(-x.shape[0] // lib.gci_scan_tile_slots()), dtype=torch.int32,
+                       device=x.device)
+
+
+def _tile_status(lib: ctypes.CDLL, x: torch.Tensor) -> torch.Tensor:
+    """Scratch of the look-back scan: one zeroed 64-bit status word per tile,
+    then the zeroed tile counter (zeroed on the current stream, part of the
+    call)."""
+    return torch.zeros(-(-x.shape[0] // lib.gci_depth_scan_tile_slots()) + 1,
+                       dtype=torch.int64, device=x.device)
+
+
+def _launch(name: str, entry: str, delta: torch.Tensor, streams, *scalars,
+            alloc_scratch=_tile_sums) -> None:
     """Run C entry ``entry`` over delta's slots: ``streams`` are its tensors
-    in the entry's order, ``scalars`` follow n.  Counts one launch of
-    ``name``; raises on a CUDA error."""
+    in the entry's order, ``scalars`` follow n, and ``alloc_scratch(lib,
+    delta)`` allocates the entry's scratch.  Counts one launch of ``name``;
+    raises on a CUDA error."""
     n = delta.shape[0]
     if n == 0:
         return
     lib = load()
-    scratch = torch.empty(-(-n // lib.gci_scan_tile_slots()), dtype=torch.int32,
-                          device=delta.device)
+    scratch = alloc_scratch(lib, delta)
     stream = torch.cuda.current_stream(delta.device).cuda_stream
     rc = getattr(lib, entry)(
         *(t.data_ptr() for t in streams), scratch.data_ptr(), n, *scalars,
@@ -163,11 +183,23 @@ def _empty_bytes(like: torch.Tensor, count: int):
             for _ in range(count)]
 
 
+# input dtype -> (launch count, C entry) of the look-back scan
+_SCAN_FORMS = {
+    torch.int32: ("depth_scan", "gci_depth_scan"),
+    torch.int8: ("depth_scan_int8", "gci_depth_scan_i8"),
+}
+
+
 def launch_depth_scan(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive int32 prefix sum of a CUDA tensor (kernel ``gci_depth_scan``)."""
-    _check_stream(x, "depth_scan", torch.int32)
-    out = torch.empty_like(x)
-    _launch("depth_scan", "gci_depth_scan", x, [x, out])
+    """Inclusive int32 prefix sum of a 16-byte aligned int32 or int8 CUDA
+    tensor (kernels ``gci_depth_scan`` and ``gci_depth_scan_i8``; int8 slots
+    are sign-extended)."""
+    if x.dtype not in _SCAN_FORMS:
+        raise ValueError(f"depth_scan: expected an int32 or int8 tensor, got {x.dtype}")
+    _check_stream(x, "depth_scan", x.dtype, align=16)
+    name, entry = _SCAN_FORMS[x.dtype]
+    out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    _launch(name, entry, x, [x, out], alloc_scratch=_tile_status)
     return out
 
 

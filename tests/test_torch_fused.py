@@ -323,6 +323,35 @@ def test_compact_indices_matches_jax(rng):
     assert compact_indices(torch.zeros(64, dtype=torch.int8)).shape == (0,)
 
 
+def _bitmap(rng, kind, dtype, n=5000):
+    """A bitmap set nowhere, everywhere, only at slot 0, only at the last
+    slot, or at random; int8 bitmaps hold truth bytes other than 1."""
+    on = np.zeros(n, bool)
+    if kind == "all":
+        on[:] = True
+    elif kind == "first":
+        on[0] = True
+    elif kind == "last":
+        on[-1] = True
+    elif kind == "random":
+        on = rng.random(n) < 0.01
+    if dtype == "bool":
+        return on
+    return np.where(on, rng.choice([1, 2, -1, -128], n), 0).astype(np.int8)
+
+
+@pytest.mark.parametrize("kind", ["empty", "all", "first", "last", "random"])
+@pytest.mark.parametrize("dtype", ["bool", "int8"])
+def test_compact_indices_edge_bitmaps_match_jax(rng, kind, dtype):
+    from gci_tpu.depth.fused import compact_indices as jax_compact
+
+    bitmap = _bitmap(rng, kind, dtype)
+    got = compact_indices(torch.from_numpy(bitmap))
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, jax_compact(jnp.asarray(bitmap)))
+    np.testing.assert_array_equal(got, np.flatnonzero(bitmap))
+
+
 def test_host_helpers_match_jax_module(rng):
     """The copied host helpers equal gci_tpu.depth.device's."""
     from gci_tpu.depth import device as jdevice
@@ -365,6 +394,22 @@ def test_device_depth_on_cuda_matches_cpu(rng):
     for hi in (1, 2):
         assert gm.collapse_dict(-1, hi, 15) == wm.collapse_dict(-1, hi, 15)
     _assert_events_equal(gm.maximum(gm).to_events(), wm.maximum(wm).to_events())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4097, 5_000_011])
+@pytest.mark.parametrize("kind", ["empty", "all", "first", "last", "random"])
+def test_compact_on_cuda_matches_nonzero(rng, n, kind):
+    """The compaction on the card (the int8 look-back scan of the bool
+    bitmap, then searchsorted) against torch.nonzero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gci_tpu_torch.depth.fused import _compact
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    bits = torch.from_numpy(_bitmap(rng, kind, "bool", n)).to(cuda)
+    got = _compact(bits, int(bits.sum()))
+    assert torch.equal(got, torch.nonzero(bits).squeeze(1))
 
 
 @pytest.mark.cuda

@@ -95,6 +95,40 @@ def test_depth_scan_torch_matches_jax(rng, n_chunks, magnitude):
     )
 
 
+@pytest.mark.parametrize("n_chunks", [1, 3])
+@pytest.mark.parametrize("kind", ["bitmap", "bytes"])
+def test_depth_scan_torch_int8_matches_jax(rng, n_chunks, kind):
+    """The int8 form: a bool bitmap viewed as int8 (the compaction's input)
+    and full-range bytes, sign-extended, against the Pallas scan and
+    jnp.cumsum of the same slots widened to int32."""
+    rows = 8
+    total = n_chunks * rows * LANES
+    if kind == "bitmap":
+        x = _t(rng.random(total) < 0.3).view(torch.int8)
+    else:
+        x = _t(rng.integers(-128, 128, size=total).astype(np.int8))
+    wide = x.numpy().astype(np.int32)
+    for got in (depth_scan_torch(x), depth_scan(x)):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.cumsum(wide)))
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jax_depth_scan(wide, rows=rows, interpret=True))
+        )
+
+
+@pytest.mark.parametrize("bad", ["bool", "int16", "int64", "2-D"])
+def test_depth_scan_refuses_other_inputs_on_cpu(bad):
+    """The CPU takes what the card takes: int32 or int8, one axis."""
+    x = {
+        "bool": torch.zeros(64, dtype=torch.bool),
+        "int16": torch.zeros(64, dtype=torch.int16),
+        "int64": torch.zeros(64, dtype=torch.int64),
+        "2-D": torch.zeros((8, 8), dtype=torch.int32),
+    }[bad]
+    with pytest.raises(ValueError):
+        depth_scan(x)
+
+
 def test_depth_scan_wrapper_runs_plain_on_cpu(rng):
     delta = rng.integers(-5, 6, size=1000).astype(np.int32)
     before = dict(kernels.LAUNCHES)
@@ -354,19 +388,29 @@ def _bad_streams():
         "strided flags": (i32, torch.zeros(128, dtype=torch.int8)[::2]),
         "int64 delta": (i32.long(), i8),
         "cpu tensors": (i32, i8),
+        # inputs depth_scan's launcher refuses by itself (and the others by
+        # their delta)
+        "bool delta": (torch.zeros(64, dtype=torch.bool), i8),
+        "int16 delta": (torch.zeros(64, dtype=torch.int16), i8),
+        "2-D delta": (i32.reshape(8, 8), i8),
+        "2-D int8 delta": (i8.reshape(8, 8), i8),
+        "strided delta": (torch.zeros(128, dtype=torch.int32)[::2], i8),
+        "cpu int8 delta": (i8, i8),
     }
 
 
 @pytest.mark.parametrize("case", sorted(_bad_streams()))
-@pytest.mark.parametrize("launcher", ["flags", "masked", "edges"])
+@pytest.mark.parametrize("launcher", ["flags", "masked", "edges", "depth_scan"])
 def test_launchers_refuse_bad_streams(case, launcher):
     """The launchers check every stream before anything builds: dtype,
-    shape, length, contiguity, then the device (a CPU tensor here)."""
+    shape, length, contiguity, then the device (a CPU tensor here).
+    depth_scan's launcher takes the delta alone."""
     delta, b = _bad_streams()[case]
     call = {
         "flags": lambda: kernels.launch_flags_scan(delta, b, -1, 0),
         "masked": lambda: kernels.launch_masked_scan(delta, b, b, -1, 0),
         "edges": lambda: kernels.launch_edges_scan(delta, b, -1, 0),
+        "depth_scan": lambda: kernels.launch_depth_scan(delta),
     }[launcher]
     before = dict(kernels.LAUNCHES)
     with pytest.raises(ValueError):
@@ -434,3 +478,58 @@ def test_cuda_launchers_refuse_misaligned_streams(cuda_device):
         fused_depth_scan(delta, b, -1, 0)
     with pytest.raises(ValueError, match="aligned"):
         fused_depth_scan_masked(delta[1:], b[:-1], b[:-1], -1, 0)
+
+
+# lengths around 4096 slots, around a warp's 2048 and the look-back scan's
+# tile of 8192 (gci_depth_scan_tile_slots), and 5,000,011 slots: 611 tiles,
+# more than the card holds resident at once, so blocks really wait on tiles
+# that are still running
+SCAN_TILE = 8192
+SCAN_LENGTHS = [1, 15, 4095, 4096, 4097, 3 * 4096 + 1, 2047, 2049,
+                SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1, 3 * SCAN_TILE + 1, 5_000_011]
+
+
+def _scan_input(rng, n, form):
+    if form == "int32":
+        return _t(rng.integers(-(2**23), 2**23, size=n).astype(np.int32))
+    if form == "bitmap":
+        return _t(rng.random(n) < 0.3).view(torch.int8)
+    return _t(rng.integers(-128, 128, size=n).astype(np.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SCAN_LENGTHS)
+@pytest.mark.parametrize("form", ["int32", "bitmap", "bytes"])
+def test_cuda_depth_scan_forms_match_plain(rng, cuda_device, n, form):
+    """Both forms of the look-back scan, one launch each, against the plain
+    version: int32 deltas, and int8 as a bool bitmap and as full-range bytes."""
+    x = _scan_input(rng, n, form).to(cuda_device)
+    name = "depth_scan" if form == "int32" else "depth_scan_int8"
+    before = kernels.LAUNCHES[name]
+    got = depth_scan(x)
+    assert kernels.LAUNCHES[name] == before + 1
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(), depth_scan_torch(x).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["int32", "bytes"])
+def test_cuda_depth_scan_repeats_equal(rng, cuda_device, form):
+    """Ten launches on one input give one answer: a look-back ordering fault
+    would show only in some of them."""
+    x = _scan_input(rng, 5_000_011, form).to(cuda_device)
+    want = depth_scan_torch(x)
+    for _ in range(10):
+        assert torch.equal(depth_scan(x), want)
+
+
+@pytest.mark.cuda
+def test_cuda_depth_scan_tile_is_the_tested_one(cuda_device):
+    assert kernels.load().gci_depth_scan_tile_slots() == SCAN_TILE
+
+
+@pytest.mark.cuda
+def test_cuda_depth_scan_refuses_misaligned_int8(cuda_device):
+    x = torch.zeros(4097, dtype=torch.int8, device=cuda_device)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        depth_scan(x)
