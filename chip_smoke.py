@@ -28,34 +28,45 @@ Phases, each printing its results:
    ``gci_tpu_torch.depth.fused.PACKED_DEPTH_LIMIT`` set to 1 in this process
    (the flags path every read count at or above 2^29 takes), and with
    ``--device events``; both device runs' nine outputs must be identical to
-   the events run's.
+   the events run's;
+6. the streamed path (``depth/streamed.py``): (a) the same MH63-shaped
+   inputs with ``--device streamed`` and
+   ``gci_tpu_torch.depth.streamed.CHUNK_SLOTS`` lowered so that 4 chunks run
+   and every chunk border falls inside a run, nine outputs identical to the
+   events run of phase 5; (b) a human-T2T-sized dual-type genome,
+   3,100,000,000 bp in 24 chromosomes (3,100,000,024 slots) with N runs, a
+   regions BED and 160,000 HiFi and 160,000 ONT reads, run with ``--device
+   device``, which must take the streamed path at its switch point
+   (``accum.stream_slot_limit``), and with ``--device events``, nine outputs
+   identical.  Each prints its chunks, walls, stages, peak device memory
+   and host peak RSS.
 
-Launch counts are set to 0 just before each path of phases 4 and 5 runs and
-read just after, and each path must have launched its kernels (and the
-packed and flags paths not each other's scan).  The script prints one JSON
-line with each kernel's launches on its path, error and times, then as its
-last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
-exits nonzero; so does a machine without CUDA.  Inputs are generated from a
-seed in a temporary directory that is removed at the end.
+Launch counts are set to 0 just before each path of phases 4 to 6 runs and
+read just after, and each path must have launched its kernels (and not the
+scans of the other paths).  The script prints one JSON line with each
+kernel's launches on its path and on every path, error, times and bound,
+then as its last line ``{"ok": true, "device": {...}}``.  Any failed check
+raises and exits nonzero; so does a machine without CUDA.  Inputs are
+generated from a seed in a temporary directory that is removed at the end.
 """
 from __future__ import annotations
 
 import gzip
 import json
 import os
+import resource
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
-from gci_tpu.depth.accum import GenomeLayout, accumulate_depth_numpy
-from gci_tpu.intervals.collapse import collapse_depth_runs
-from gci_tpu.io.bam_writer import build_record, write_bam
 from gci_tpu_torch import cli, kernels
-from gci_tpu_torch.depth import fused
+from gci_tpu_torch.depth import accum, fused, streamed
+from gci_tpu_torch.depth.accum import GenomeLayout, accumulate_depth_numpy
 from gci_tpu_torch.depth.device import (
     depth_and_edges_fused,
     pack_read_deltas,
@@ -74,8 +85,10 @@ from gci_tpu_torch.depth.scan import (
     fused_depth_scan_packed_torch,
     fused_depth_scan_torch,
 )
+from gci_tpu_torch.intervals.collapse import collapse_depth_runs
+from gci_tpu_torch.io.bam_writer import build_record, write_bam
 from gci_tpu_torch.native import ensure_host_codec
-from gci_tpu.utils import get_metrics
+from gci_tpu_torch.utils.metrics import get_metrics
 
 SEED = 63
 # MH63 rice: 12 chromosomes, 395,765,500 bp; the split between chromosomes
@@ -87,28 +100,62 @@ N_ONT, ONT_MEAN, ONT_SD = 100_000, 25_000, 10_000
 TIMED_RUNS = 5
 REPEATED_LAUNCHES = 20  # of each depth_scan form on one input
 PREFIX = "MH63"
-OUTPUTS = [
-    f"{PREFIX}_hifi.depth.gz", f"{PREFIX}_nano.depth.gz", f"{PREFIX}_two_type.depth.gz",
-    f"{PREFIX}_hifi.0.depth.bed", f"{PREFIX}_nano.0.depth.bed",
-    f"{PREFIX}_two_type.0.depth.bed", f"{PREFIX}.gci", f"{PREFIX}.regions.gci",
-    f"{PREFIX}.gaps.bed",
+# phase 6a: 4 chunks of the MH63-shaped genome, borders away from chromosome
+# starts
+MH63_STREAM_CHUNK = 100_000_007
+# phase 6b: a human T2T assembly's size, 3.1 Gbp in 24 chromosomes; the split
+# is synthetic, proportional to the T2T-CHM13v2.0 chromosome sizes (chr1-22,
+# X, Y).  Only the reads are cut, from the ~9M reads of 58x HiFi to 160,000
+# per type.
+T2T_PREFIX = "T2T"
+T2T_TOTAL_BP = 3_100_000_000
+T2T_SIZES_MBP = [
+    248.39, 242.70, 201.11, 193.57, 182.05, 172.13, 160.57, 146.26, 150.62,
+    134.76, 135.13, 133.32, 113.57, 101.16, 99.75, 96.33, 84.28, 80.54, 61.71,
+    66.21, 45.09, 51.32, 154.26, 62.46,
 ]
+T2T_READS = 160_000  # per read type
+RESIDENT_MH63_PEAK = 9_897_666_048  # bytes, the resident path's peak at MH63 size
+
+
+def outputs(prefix: str) -> list[str]:
+    """The nine outputs of a dual-type run with regions and N gaps."""
+    return [
+        f"{prefix}_hifi.depth.gz", f"{prefix}_nano.depth.gz", f"{prefix}_two_type.depth.gz",
+        f"{prefix}_hifi.0.depth.bed", f"{prefix}_nano.0.depth.bed",
+        f"{prefix}_two_type.0.depth.bed", f"{prefix}.gci", f"{prefix}.regions.gci",
+        f"{prefix}.gaps.bed",
+    ]
+
+
 SOURCE = "gci_tpu_torch/csrc/scan.cu"
 KERNEL_ROWS = {
-    # wrapper name -> (the TPU kernel it replaces, the path whose launches count)
-    "fused_depth_scan_packed": ("gci_tpu/depth/pallas_scan.py:605", "packed"),
-    "depth_scan": ("gci_tpu/depth/pallas_scan.py:208", "packed"),
-    "depth_scan_int8": ("gci_tpu/depth/pallas_scan.py:208", "packed"),
-    "fused_depth_scan_flags": ("gci_tpu/depth/pallas_scan.py:467", "flags"),
-    "fused_depth_scan": ("gci_tpu/depth/pallas_scan.py:252", "entries"),
-    "fused_depth_scan_masked": ("gci_tpu/depth/pallas_scan.py:336", "entries"),
+    # wrapper name -> (the TPU kernel it replaces, the path whose launches
+    # count, bytes per slot: each input read once and each output written
+    # once, integer operations per slot the function needs, the one PyTorch
+    # call that computes the same function or None)
+    "fused_depth_scan_packed": ("gci_tpu/depth/pallas_scan.py:605", "packed", 9, 18, None),
+    "depth_scan": ("gci_tpu/depth/pallas_scan.py:208", "streamed_3g", 8, 1,
+                   lambda x: torch.cumsum(x, 0, dtype=torch.int32)),
+    "depth_scan_int8": ("gci_tpu/depth/pallas_scan.py:208", "streamed_3g", 5, 1,
+                        lambda x: torch.cumsum(x, 0, dtype=torch.int32)),
+    "fused_depth_scan_flags": ("gci_tpu/depth/pallas_scan.py:467", "flags", 10, 16, None),
+    "fused_depth_scan": ("gci_tpu/depth/pallas_scan.py:252", "entries", 11, 10, None),
+    "fused_depth_scan_masked": ("gci_tpu/depth/pallas_scan.py:336", "entries", 13, 16, None),
 }
-# the kernels each CLI path must launch, and the scan it must not
+# the card's peaks at 700 W (NVIDIA's H100 SXM data sheet): memory bytes/s,
+# and float32 operations/s outside the tensor cores, the rate each integer
+# operation is counted at
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+# the kernels each CLI path must launch, and the scans it must not
 PATH_KERNELS = {
     "packed": (("fused_depth_scan_packed", "depth_scan", "depth_scan_int8"),
-               "fused_depth_scan_flags"),
+               ("fused_depth_scan_flags",)),
     "flags": (("fused_depth_scan_flags", "depth_scan", "depth_scan_int8"),
-              "fused_depth_scan_packed"),
+              ("fused_depth_scan_packed",)),
+    "streamed": (("depth_scan", "depth_scan_int8"),
+                 ("fused_depth_scan_packed", "fused_depth_scan_flags")),
 }
 WIDE = (-(2**30), 2**30)  # an issue range holding about half of random depths
 
@@ -144,7 +191,9 @@ def max_abs_err(got, want) -> int:
 
 def hold(name: str, kernel, plain, cases, timed) -> dict:
     """Each case through the kernel and its plain version, every output
-    exactly equal; then the median times of both on ``timed``."""
+    exactly equal; then the median times of both, and of the one PyTorch
+    call computing the same function where there is one, on ``timed``, and
+    the kernel's bound on those inputs."""
     before = kernels.LAUNCHES[name]
     err = 0
     for k, args in enumerate(cases):
@@ -160,9 +209,19 @@ def hold(name: str, kernel, plain, cases, timed) -> dict:
           f"{name} launch count did not advance")
     ms = median_ms(lambda: kernel(*timed))
     plain_ms = median_ms(lambda: plain(*timed))
+    _, _, bytes_per_slot, ops_per_slot, library = KERNEL_ROWS[name]
+    library_ms = None if library is None else median_ms(lambda: library(timed[0]))
+    n = timed[0].shape[0]
+    bound_ms, bound_by = max(
+        (n * bytes_per_slot / PEAK_BYTES_PER_S * 1e3, "bytes"),
+        (n * ops_per_slot / PEAK_OPS_PER_S * 1e3, "operations"),
+    )
     log(f"[kernels] {name} exact on {len(cases)} inputs, {ms:.4f} ms vs plain "
-        f"{plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"{plain_ms:.4f} ms, library {library_ms} ms; bound {bound_ms:.4f} ms "
+        f"({bound_by}, {bytes_per_slot} B/slot at {n} slots), "
+        f"{100 * bound_ms / ms:.1f}% of it")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def hold_repeats(name: str, x: torch.Tensor) -> None:
@@ -197,7 +256,7 @@ def phase_environment() -> str:
         f"CUDA {torch.version.cuda}, nvcc: {nvcc}")
     log(f"[env] device {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
-    log(f"[env] gci_tpu.native host codec built with: {ensure_host_codec()}")
+    log(f"[env] gci_tpu_torch.native host codec built with: {ensure_host_codec()}")
     return smi
 
 
@@ -247,7 +306,7 @@ def write_fasta(path: str, lengths, gaps, rng) -> None:
             body = np.empty((n_full, width + 1), np.uint8)
             body[:, :width] = seq[: n_full * width].reshape(n_full, width)
             body[:, width] = 10
-            f.write(body.tobytes())
+            f.write(body)
             if L % width:
                 f.write(seq[n_full * width:].tobytes() + b"\n")
 
@@ -279,24 +338,44 @@ def write_reads_bam(path: str, lengths, n, mean, sd, prefix, rng) -> None:
     write_bam(path, names, [lengths[t] for t in names], recs, level=1, threads=8)
 
 
-def make_inputs(root: str) -> dict[str, str]:
+def make_inputs(root: str, lengths, gaps, n_hifi: int, n_ont: int, whole: str,
+                seed: int) -> dict[str, str]:
+    """FASTA with ``gaps`` as N runs, HiFi and ONT BAMs, and a regions BED
+    (two stretches of the first two chromosomes and all of ``whole``)."""
     paths = {k: os.path.join(root, f) for k, f in (
         ("ref", "ref.fa"), ("hifi", "hifi.bam"), ("ont", "ont.bam"),
         ("regions", "regions.bed"))}
     os.makedirs(root, exist_ok=True)
     t0 = time.perf_counter()
-    rng = np.random.default_rng(SEED)
-    lengths = chrom_lengths()
-    write_fasta(paths["ref"], lengths, gap_runs(lengths), rng)
-    write_reads_bam(paths["hifi"], lengths, N_HIFI, HIFI_MEAN, HIFI_SD, "h", rng)
-    write_reads_bam(paths["ont"], lengths, N_ONT, ONT_MEAN, ONT_SD, "o", rng)
+    rng = np.random.default_rng(seed)
+    write_fasta(paths["ref"], lengths, gaps, rng)
+    write_reads_bam(paths["hifi"], lengths, n_hifi, HIFI_MEAN, HIFI_SD, "h", rng)
+    write_reads_bam(paths["ont"], lengths, n_ont, ONT_MEAN, ONT_SD, "o", rng)
     names = list(lengths)
     with open(paths["regions"], "w") as f:
         f.write(f"{names[0]}\t1000000\t9000000\n{names[1]}\t4000000\t30000000\n"
-                f"{names[10]}\t0\t{lengths[names[10]]}\n")
-    log(f"[inputs] generated {sum(lengths.values())} bp, {N_HIFI} HiFi + {N_ONT} "
+                f"{whole}\t0\t{lengths[whole]}\n")
+    log(f"[inputs] generated {sum(lengths.values())} bp, {n_hifi} HiFi + {n_ont} "
         f"ONT reads in {time.perf_counter() - t0:.1f} s under {root}")
     return paths
+
+
+def t2t_lengths() -> dict[str, int]:
+    w = np.asarray(T2T_SIZES_MBP)
+    lens = np.floor(w / w.sum() * T2T_TOTAL_BP).astype(np.int64)
+    lens[0] += T2T_TOTAL_BP - int(lens.sum())
+    names = [f"chr{k}" for k in range(1, 23)] + ["chrX", "chrY"]
+    return {name: int(L) for name, L in zip(names, lens)}
+
+
+def t2t_gap_runs(lengths: dict[str, int]) -> dict[str, list[tuple[int, int]]]:
+    """N runs mid-chromosome, at a chromosome start and at an end."""
+    return {
+        "chr1": [(120_000_000, 120_100_000)],
+        "chr9": [(0, 20_000), (60_000_000, 60_000_500)],
+        "chr13": [(5_000_000, 5_400_000)],
+        "chrY": [(lengths["chrY"] - 50_000, lengths["chrY"])],
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -488,8 +567,17 @@ def phase_entries(dev: torch.device) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 def _same_file(p1: str, p2: str) -> bool:
-    opener = gzip.open if p1.endswith(".gz") else open
-    with opener(p1, "rb") as a, opener(p2, "rb") as b:
+    """Same content: equal bytes, or for .gz equal inflated bytes."""
+    with open(p1, "rb") as a, open(p2, "rb") as b:
+        while True:
+            x, y = a.read(1 << 26), b.read(1 << 26)
+            if x != y:
+                break
+            if not x:
+                return True
+    if not p1.endswith(".gz"):
+        return False
+    with gzip.open(p1, "rb") as a, gzip.open(p2, "rb") as b:
         while True:
             x, y = a.read(1 << 26), b.read(1 << 26)
             if x != y:
@@ -498,12 +586,18 @@ def _same_file(p1: str, p2: str) -> bool:
                 return True
 
 
-def run_cli(paths, out_dir: str, backend: str) -> tuple[float, list]:
+def check_same_outputs(dir1: str, dir2: str, prefix: str, what: str) -> None:
+    for name in outputs(prefix):
+        check(_same_file(os.path.join(dir1, name), os.path.join(dir2, name)),
+              f"{name}: {what} differs from --device events")
+
+
+def run_cli(paths, out_dir: str, backend: str, prefix: str = PREFIX) -> tuple[float, list]:
     get_metrics().reset()
     t0 = time.perf_counter()
     cli.main([
         "-r", paths["ref"], "--hifi", paths["hifi"], "--nano", paths["ont"],
-        "-R", paths["regions"], "-d", out_dir, "-o", PREFIX, "-t", "8", "-f",
+        "-R", paths["regions"], "-d", out_dir, "-o", prefix, "-t", "8", "-f",
         "--device", backend, "--profile",
     ])
     torch.cuda.synchronize()
@@ -511,43 +605,181 @@ def run_cli(paths, out_dir: str, backend: str) -> tuple[float, list]:
     return wall, [r.as_dict() for r in get_metrics().records]
 
 
-def run_device_path(paths, out_dir: str, path: str):
-    """One ``--device device`` CLI run with the launch counts set to 0 just
-    before it and read just after; the path's kernels must have launched."""
+def run_device_path(paths, out_dir: str, backend: str, path: str, label: str,
+                    prefix: str = PREFIX):
+    """One ``--device backend`` CLI run with the launch counts set to 0 just
+    before it and read just after; the path's kernels must have launched
+    and the other paths' scans not.  Returns (launches, peak device bytes)."""
     required, absent = PATH_KERNELS[path]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    wall, stages = run_cli(paths, out_dir, "device")
+    wall, stages = run_cli(paths, out_dir, backend, prefix)
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     for name in required:
         check(launches[name] > 0, f"{name} was not launched on the {path} path")
-    check(launches[absent] == 0, f"{absent} was launched on the {path} path")
-    log(f"[main] {path} path: device run {wall:.3f} s; launches {launches}")
-    log(f"[main] {path} path: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
-    log(f"[main] {path} path: stages " + json.dumps(stages))
-    return launches
+    for name in absent:
+        check(launches[name] == 0, f"{name} was launched on the {path} path")
+    log(f"{label}: --device {backend} run {wall:.3f} s; launches {launches}")
+    log(f"{label}: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB; "
+        f"{before} bytes allocated before the run)")
+    log(f"{label}: stages " + json.dumps(stages))
+    return launches, peak
 
 
-def phase_main_path(paths, work: str) -> dict[str, dict]:
+def phase_main_path(paths, work: str):
+    """Returns the launches of each path and the packed path's peak."""
     dirs = {k: os.path.join(work, k) for k in ("packed", "flags", "events")}
-    launches = {"packed": run_device_path(paths, dirs["packed"], "packed")}
+    launches = {}
+    launches["packed"], packed_peak = run_device_path(
+        paths, dirs["packed"], "device", "packed", "[main] packed path")
     limit = fused.PACKED_DEPTH_LIMIT
     fused.PACKED_DEPTH_LIMIT = 1  # every read count takes the flags path
     try:
-        launches["flags"] = run_device_path(paths, dirs["flags"], "flags")
+        launches["flags"], _ = run_device_path(
+            paths, dirs["flags"], "device", "flags", "[main] flags path")
     finally:
         fused.PACKED_DEPTH_LIMIT = limit
     wall_ev, stages_ev = run_cli(paths, dirs["events"], "events")
     for path in ("packed", "flags"):
-        for name in OUTPUTS:
-            check(_same_file(os.path.join(dirs[path], name),
-                             os.path.join(dirs["events"], name)),
-                  f"{name}: --device device ({path} path) differs from --device events")
-    check("jax" not in sys.modules, "jax was imported")
-    log(f"[main] events run {wall_ev:.3f} s; all {len(OUTPUTS)} outputs of both "
-        "device paths identical to it")
+        check_same_outputs(dirs[path], dirs["events"], PREFIX,
+                           f"--device device ({path} path)")
+    log(f"[main] events run {wall_ev:.3f} s; all {len(outputs(PREFIX))} outputs of "
+        "both device paths identical to it")
     log("[main] stages events " + json.dumps(stages_ev))
+    return launches, packed_peak
+
+
+# ---------------------------------------------------------------------------
+# 6. the streamed path
+# ---------------------------------------------------------------------------
+
+class StreamedCalls:
+    """While active: ``streamed.CHUNK_SLOTS`` set to ``chunk_slots`` (if
+    given), and each result of the streamed path kept in ``results`` (the
+    pipeline looks the function up at each call)."""
+
+    def __init__(self, chunk_slots: int | None = None):
+        self.chunk_slots = chunk_slots
+        self.results = []
+
+    def __enter__(self):
+        self._real, self._chunk = streamed.events_from_reads_streamed, streamed.CHUNK_SLOTS
+
+        def spy(*args, **kwargs):
+            self.results.append(self._real(*args, **kwargs))
+            return self.results[-1]
+
+        streamed.events_from_reads_streamed = spy
+        if self.chunk_slots is not None:
+            streamed.CHUNK_SLOTS = self.chunk_slots
+        return self
+
+    def __exit__(self, *exc):
+        streamed.events_from_reads_streamed = self._real
+        streamed.CHUNK_SLOTS = self._chunk
+
+
+def rss_bytes() -> int:
+    """This process's resident set size now."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * resource.getpagesize()
+
+
+class RssPeak:
+    """This process's resident set size when entered (``start``) and the
+    largest while active (``peak``), sampled every 10 ms by a thread (the
+    kernel's own peak mark covers the whole process and cannot always be
+    reset)."""
+
+    def __enter__(self):
+        self.start = self.peak = rss_bytes()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, rss_bytes())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def check_streamed_launches(launches, n_chunks: int, label: str) -> None:
+    """Two read types, each chunk of each: one int32 scan (its depth) and
+    one int8 scan (its boundary bitmap's prefix)."""
+    for name in ("depth_scan", "depth_scan_int8"):
+        check(launches[name] == 2 * n_chunks,
+              f"{label}: {name} launched {launches[name]} times, expected {2 * n_chunks}")
+
+
+def phase_streamed_mh63(paths, work: str) -> dict[str, int]:
+    """6a: --device streamed on the MH63-shaped inputs, 4 chunks whose
+    borders fall inside runs, against phase 5's events run."""
+    lengths = chrom_lengths()
+    layout = GenomeLayout.from_targets(lengths)
+    n_chunks = -(-layout.total_slots // MH63_STREAM_CHUNK)
+    log(f"[streamed] MH63: {n_chunks} chunks of {MH63_STREAM_CHUNK} slots over "
+        f"{layout.total_slots}")
+    check(n_chunks >= 4, "fewer than 4 chunks")
+    out = os.path.join(work, "streamed")
+    with StreamedCalls(MH63_STREAM_CHUNK) as calls:
+        launches, _ = run_device_path(paths, out, "streamed", "streamed",
+                                      "[streamed] MH63")
+    check(len(calls.results) == 2, "the streamed path did not run for both read types")
+    check_streamed_launches(launches, n_chunks, "MH63 streamed")
+    for c in range(1, n_chunks):
+        a = c * MH63_STREAM_CHUNK
+        k = int(np.searchsorted(layout.offsets, a, side="right")) - 1
+        local, name = a - int(layout.offsets[k]), layout.names[k]
+        check(0 < local < int(layout.lengths[k]), f"chunk border {a} is not inside a target")
+        for ev in calls.results:
+            check(local not in set(ev[name].boundaries.tolist()),
+                  f"chunk border {a} is a run boundary of {name}")
+    log(f"[streamed] MH63: all {n_chunks - 1} chunk borders fall inside runs of "
+        "both read types")
+    check_same_outputs(out, os.path.join(work, "events"), PREFIX, "--device streamed")
+    log(f"[streamed] MH63: all {len(outputs(PREFIX))} outputs identical to the "
+        "events run")
+    return launches
+
+
+def phase_streamed_t2t(work: str, packed_peak: int) -> dict[str, int]:
+    """6b: a 3.1 Gbp dual-type genome through --device device, which must
+    take the streamed path, against --device events."""
+    lengths = t2t_lengths()
+    layout = GenomeLayout.from_targets(lengths)
+    check(layout.total_slots == T2T_TOTAL_BP + len(lengths), "T2T slot count")
+    paths = make_inputs(os.path.join(work, "t2t_inputs"), lengths, t2t_gap_runs(lengths),
+                        T2T_READS, T2T_READS, "chrX", SEED + 5)
+    limit = accum.stream_slot_limit(torch.device("cuda", torch.cuda.current_device()))
+    n_chunks = -(-layout.total_slots // streamed.CHUNK_SLOTS)
+    log(f"[streamed] T2T: {layout.total_slots} slots, switch point {limit} slots; "
+        f"{n_chunks} chunks of {streamed.CHUNK_SLOTS} slots")
+    check(layout.total_slots > limit, "the T2T genome is below the switch point")
+    dirs = {k: os.path.join(work, f"t2t_{k}") for k in ("device", "events")}
+    with RssPeak() as rss, StreamedCalls() as calls:
+        launches, peak = run_device_path(paths, dirs["device"], "device", "streamed",
+                                         "[streamed] T2T", T2T_PREFIX)
+    check(len(calls.results) == 2, "--device device did not take the streamed path")
+    check_streamed_launches(launches, n_chunks, "T2T --device device")
+    check(peak < packed_peak and peak < RESIDENT_MH63_PEAK,
+          f"T2T streamed peak {peak} bytes is not below the resident path's")
+    log(f"[streamed] T2T: host RSS during the device run: {rss.start} bytes at its "
+        f"start, peak {rss.peak} bytes ({rss.peak / 2**30:.3f} GiB, sampled every "
+        f"10 ms), {rss.peak - rss.start} bytes above the start; process peak so far "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024} bytes")
+    wall_ev, stages_ev = run_cli(paths, dirs["events"], "events", T2T_PREFIX)
+    log(f"[streamed] T2T: events run {wall_ev:.3f} s; stages " + json.dumps(stages_ev))
+    check_same_outputs(dirs["device"], dirs["events"], T2T_PREFIX,
+                       "--device device (streamed path)")
+    log(f"[streamed] T2T: all {len(outputs(T2T_PREFIX))} outputs identical to the "
+        "events run")
     return launches
 
 
@@ -561,13 +793,22 @@ def main() -> None:
     rows = phase_kernels(dev)
     launches = {"entries": phase_entries(dev)}
     with tempfile.TemporaryDirectory(prefix="gci_tpu_torch_smoke_") as work:
-        paths = make_inputs(os.path.join(work, "inputs"))
-        launches.update(phase_main_path(paths, work))
+        lengths = chrom_lengths()
+        paths = make_inputs(os.path.join(work, "inputs"), lengths, gap_runs(lengths),
+                            N_HIFI, N_ONT, list(lengths)[10], SEED)
+        main_launches, packed_peak = phase_main_path(paths, work)
+        launches.update(main_launches)
+        launches["streamed_mh63"] = phase_streamed_mh63(paths, work)
+        launches["streamed_3g"] = phase_streamed_t2t(work, packed_peak)
+    check("jax" not in sys.modules and "gci_tpu" not in sys.modules,
+          "jax or the JAX package was imported")
 
     kernels_line = {"kernels": [
-        dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
-             launches=launches[path][name], **rows[name])
-        for name, (replaces, path) in KERNEL_ROWS.items()
+        dict(name=name, route="cuda", source=SOURCE, replaces=row[0],
+             launches=launches[row[1]][name],
+             launches_by_path={path: counts[name] for path, counts in launches.items()},
+             **rows[name])
+        for name, row in KERNEL_ROWS.items()
     ]}
     log(json.dumps(kernels_line))
     log(smi)

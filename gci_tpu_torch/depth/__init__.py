@@ -3,14 +3,22 @@ from __future__ import annotations
 
 import os
 
-# backends this port runs; sharded and streamed come with later slices
-PORTED_BACKENDS = ("device", "events", "numpy")
+from .accum import (
+    GenomeLayout,
+    accumulate_depth,
+    accumulate_depth_numpy,
+    depth_dict_from_flat,
+)
+
+# backends this port runs; the sharded one comes with the multi-GPU slice
+PORTED_BACKENDS = ("device", "streamed", "events", "numpy")
 
 
 def resolve_auto_backend() -> str:
-    """``device`` when CUDA is present, else ``events``.
+    """``device``: the run goes on the card, and raises where there is none.
 
-    ``GCI_AUTO_BACKEND`` overrides, restricted to the ported backends.
+    The host backends run only when they are named, through ``--device`` or
+    ``GCI_AUTO_BACKEND`` (restricted to the ported backends).
     """
     override = os.environ.get("GCI_AUTO_BACKEND")
     if override:
@@ -20,6 +28,14 @@ def resolve_auto_backend() -> str:
                 f" (expected one of {sorted(PORTED_BACKENDS)})"
             )
         return override
-    import torch
+    return "device"
 
-    return "device" if torch.cuda.is_available() else "events"
+
+__all__ = [
+    "GenomeLayout",
+    "PORTED_BACKENDS",
+    "accumulate_depth",
+    "accumulate_depth_numpy",
+    "depth_dict_from_flat",
+    "resolve_auto_backend",
+]

@@ -1,17 +1,17 @@
 """Host helpers of the single-GPU depth path, the device scatter and scans.
 
-Counterpart of ``gci_tpu/depth/device.py``.  ``pack_read_deltas``,
-``build_scan_valid`` and ``edge_indices_to_intervals`` are host numpy code,
-copied because their JAX module imports jax at its top;
-``depth_and_edges_fused`` is the single-chip fused entry.  The rest of that
-module (the sharded mesh programs) belongs to the multi-GPU slice.
+Counterpart of ``gci_tpu/depth/device.py``: the host numpy helpers
+``pack_read_deltas``, ``build_scan_valid`` and ``edge_indices_to_intervals``,
+the device scatter, and ``depth_and_edges_fused``, the single-GPU fused
+entry.  The rest of that module (the sharded mesh programs) belongs to the
+multi-GPU slice.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from gci_tpu.depth.accum import GenomeLayout, clamp_read_intervals
+from gci_tpu_torch.depth.accum import GenomeLayout, clamp_read_intervals
 from gci_tpu_torch.depth.scan import depth_scan, fused_depth_scan
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -53,8 +53,10 @@ def scatter_events(pad_total: int, device: torch.device, events) -> torch.Tensor
 
     The reference's scatter drops out-of-range indices silently; torch's
     raises (CPU) or asserts (CUDA), so the range is checked here on the host
-    and an index outside ``[0, pad_total)`` raises IndexError.  Integer adds
-    commute, so the atomics' order on the card cannot change the result.
+    and an index outside ``[0, pad_total)`` raises IndexError.  Checked
+    indices go to the device as int32 where ``pad_total`` allows it (half
+    the bytes of int64).  Integer adds commute, so the atomics' order on the
+    card cannot change the result.
     """
     idx = [np.asarray(i, np.int64) for i, _ in events]
     val = [
@@ -70,6 +72,8 @@ def scatter_events(pad_total: int, device: torch.device, events) -> torch.Tensor
             f"event index outside [0, {pad_total}): "
             f"[{int(idx.min())}, {int(idx.max())}]"
         )
+    if pad_total <= _INT32_MAX:
+        idx = idx.astype(np.int32)
     w.index_add_(0, torch.from_numpy(idx).to(device), torch.from_numpy(val).to(device))
     return w
 
@@ -126,7 +130,7 @@ def edge_indices_to_intervals(
     Applies the reference emission quirks (drop when the run terminates at a
     scan index <= flank_len; final-position closure).
     """
-    from gci_tpu.intervals.collapse import runs_to_intervals
+    from gci_tpu_torch.intervals.collapse import runs_to_intervals
 
     out: dict[str, list[tuple[int, int]]] = {}
     for k, name in enumerate(layout.names):

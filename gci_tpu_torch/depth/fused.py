@@ -22,13 +22,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gci_tpu.depth.accum import GenomeLayout
-from gci_tpu.depth.base import (
+from gci_tpu_torch.depth.accum import GenomeLayout, depth_dict_from_flat
+from gci_tpu_torch.depth.base import (
     ResidentDepth,
     events_from_change_indices,
     gap_interval_events,
 )
-from gci_tpu.depth.fused import _valid_intervals
 from gci_tpu_torch.depth.device import (
     _local_prefix_sum,
     edge_indices_to_intervals,
@@ -59,6 +58,20 @@ def _check_disjoint(starts: np.ndarray, stops: np.ndarray) -> None:
     order = np.argsort(starts, kind="stable")
     if (starts[order][1:] < stops[order][:-1]).any():
         raise ValueError("gap intervals overlap; the packed event word needs them disjoint")
+
+
+def _valid_intervals(layout: GenomeLayout, flank_len: int):
+    """[flank, L-flank) scan-window intervals per target (GCI.py:374)."""
+    starts: list[int] = []
+    stops: list[int] = []
+    for k in range(len(layout.names)):
+        L = int(layout.lengths[k])
+        if L - 2 * flank_len <= 0:
+            continue
+        o = int(layout.offsets[k])
+        starts.append(o + flank_len)
+        stops.append(o + L - flank_len)
+    return starts, stops
 
 
 def _mask(d: torch.Tensor, marks: torch.Tensor, gap_bit: int) -> torch.Tensor:
@@ -479,7 +492,5 @@ class DeviceDepth(ResidentDepth):
 
     def materialize_dict(self) -> dict[str, np.ndarray]:
         """Per-target per-base arrays (tests/oracles only — O(genome) host)."""
-        from gci_tpu.depth.accum import depth_dict_from_flat
-
         flat = self.array[: self.layout.total_slots].cpu().numpy()
         return depth_dict_from_flat(self.layout, flat)

@@ -8,11 +8,13 @@
                  BEDs, scoring, optional plots).
 
 Single process, single device.  Ingestion, filtering, curation and scoring
-are ``gci_tpu``'s host code, reused by import.  Depth backends: ``device``
-(``DeviceDepth`` on a torch device: the GPU in production, the CPU in
-tests), ``events`` (O(reads) event space, host) and ``numpy`` (host
-oracle).  The sharded and streamed backends, the multi-host input shards and
-the pack<->scatter overlap are not ported yet and raise.
+are the port's copies of ``gci_tpu``'s host code.  Depth backends:
+``device`` (``DeviceDepth`` resident on a torch device: the GPU in
+production, the CPU in tests; past ``accum.stream_slot_limit`` it takes the
+streamed path), ``streamed`` (chunked scans on the device, O(runs) event
+space on the host), ``events`` (O(reads) event space, host) and ``numpy``
+(host oracle).  The sharded backend, the multi-host input shards and the
+pack<->scatter overlap are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -22,10 +24,18 @@ import sys
 import numpy as np
 import torch
 
-from gci_tpu.depth import GenomeLayout, accumulate_depth, depth_dict_from_flat
-from gci_tpu.depth.base import ResidentDepth
-from gci_tpu.depth.eventspace import DepthEvents, events_dict_from_reads
-from gci_tpu.filters import (
+from gci_tpu_torch.depth import (
+    PORTED_BACKENDS,
+    GenomeLayout,
+    accum,
+    accumulate_depth,
+    depth_dict_from_flat,
+    resolve_auto_backend,
+)
+from gci_tpu_torch.depth.base import ResidentDepth
+from gci_tpu_torch.depth.eventspace import DepthEvents, events_dict_from_reads
+from gci_tpu_torch.device import resolve_device
+from gci_tpu_torch.filters import (
     CurationInput,
     bam_filter_mask,
     curate_files,
@@ -33,21 +43,15 @@ from gci_tpu.filters import (
     elect_primary_targets,
     paf_filter_mask,
 )
-from gci_tpu.filters.cascade import high_qual_keys
-from gci_tpu.io.fasta import mask_gaps_in_depths, scan_fasta
-from gci_tpu.io.paf import read_paf
-from gci_tpu.utils import get_metrics, stage
-from gci_tpu_torch.depth import PORTED_BACKENDS, resolve_auto_backend
-from gci_tpu_torch.device import resolve_device
+from gci_tpu_torch.filters.cascade import high_qual_keys
+from gci_tpu_torch.io.fasta import mask_gaps_in_depths, scan_fasta
+from gci_tpu_torch.io.paf import read_paf
 from gci_tpu_torch.io.depth_file import write_depth_gz
 from gci_tpu_torch.parallel.distributed import is_primary_host
 from gci_tpu_torch.reports import emit_gaps_bed, emit_issue_bed
 from gci_tpu_torch.score.report import compute_continuity_report
 from gci_tpu_torch.utils.files import require_writable
-
-# the device backend indexes genome slots with int32 (pack_read_deltas); a
-# larger genome needs the streamed path or int64 slots, both still to port
-SINGLE_DEVICE_SLOT_LIMIT = np.iinfo(np.int32).max
+from gci_tpu_torch.utils.metrics import get_metrics, stage
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -55,14 +59,14 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def resolve_backend(depth_backend: str, torch_device=None):
-    """(backend, torch.device or None) for a run; ``auto`` picks ``device``
-    on a CUDA machine, else ``events``.  The device backend defaults to
-    CUDA and raises when there is none."""
+    """(backend, torch.device or None) for a run; ``auto`` is ``device``.
+    The device and streamed backends default to CUDA and raise when there
+    is none."""
     if depth_backend == "auto":
         depth_backend = resolve_auto_backend()
     if depth_backend not in PORTED_BACKENDS:
         raise _not_ported(f"the {depth_backend!r} depth backend")
-    if depth_backend != "device":
+    if depth_backend not in ("device", "streamed"):
         return depth_backend, None
     return depth_backend, resolve_device("cuda" if torch_device is None else torch_device)
 
@@ -86,18 +90,21 @@ def run_filter(
     torch_device=None,
     gaps=None,
     threshold: int = 0,
+    slot_limit: int | None = None,
 ):
     """Filter alignments of one read type into depth (GCI.py:172-312).
 
     ``gaps``/``threshold`` feed the device backend so its one kernel pass
     can pre-extract the run's issue edges; other backends ignore them (gap
-    masking stays a separate pipeline stage, as in the reference).
+    masking stays a separate pipeline stage, as in the reference).  The
+    device backend streams a genome of more than ``slot_limit`` slots
+    (default: ``accum.stream_slot_limit`` of its device).
     """
     require_writable(f"{directory}/{prefix}.depth.gz", force)
     print(f"Filtering {log_reads_type} alignment files ...")
     depth_backend, torch_device = resolve_backend(depth_backend, torch_device)
 
-    from gci_tpu.io.bam import BamStream
+    from gci_tpu_torch.io.bam import BamStream
 
     chunk_bytes = int(os.environ.get("GCI_BAM_CHUNK_BYTES", 64 << 20))
 
@@ -118,19 +125,18 @@ def run_filter(
         targets_length = stream0.targets_length()
     target_ids = {name: k for k, name in enumerate(targets_length)}
     layout = GenomeLayout.from_targets(targets_length)
-    if depth_backend == "device" and layout.total_slots > SINGLE_DEVICE_SLOT_LIMIT:
-        stream0.close()
-        raise _not_ported(
-            f"a {layout.total_slots}-slot genome (above the single-device "
-            f"int32 limit of {SINGLE_DEVICE_SLOT_LIMIT}) needs the streamed path, which"
-        )
+    if depth_backend == "device":
+        if slot_limit is None:
+            slot_limit = accum.stream_slot_limit(torch_device)
+        if layout.total_slots > slot_limit:
+            depth_backend = "streamed"
 
     hq_parts: list[np.ndarray] = []
     curation_inputs: list[CurationInput] = []
 
     # --- PAF branch (GCI.py:213-254): cumulative election across files
     if paf_files:
-        from gci_tpu.io.paf import PafData
+        from gci_tpu_torch.io.paf import PafData
 
         global_target_names = list(targets_length)
         paf_masked = []
@@ -259,6 +265,14 @@ def run_filter(
             depths = events_dict_from_reads(
                 layout, curated.target_id, curated.start, curated.end, flank_len
             )
+        elif depth_backend == "streamed":
+            # chunked scans on the device; O(runs) event space on the host
+            from gci_tpu_torch.depth.streamed import events_from_reads_streamed
+
+            depths = events_from_reads_streamed(
+                layout, curated.target_id, curated.start, curated.end,
+                flank_len, device=torch_device,
+            )
         elif depth_backend == "device":
             # one scatter of the packed event word + ONE fused scan kernel
             # (depth, gap-masked issue edges, checkpoint run boundaries); the
@@ -342,7 +356,7 @@ def run_gci(
 ) -> None:
     """Whole run with the semantics of the reference's ``GCI()`` (GCI.py:897-1028).
 
-    ``torch_device`` is where the ``device`` backend keeps its depth
+    ``torch_device`` is where the ``device`` and ``streamed`` backends run
     (default: the current CUDA device; ``"cpu"`` runs the kernels' plain
     versions).
     """
@@ -373,8 +387,8 @@ def _run_gci_inner(
     depth_max, window_size, image_type, force, dist_percent, reference,
     regions, chrs, threads, depth_backend, torch_device,
 ) -> None:
-    from gci_tpu.io.bam import read_bam_header
-    from gci_tpu.io.bed import read_bed_dict
+    from gci_tpu_torch.io.bam import read_bam_header
+    from gci_tpu_torch.io.bed import read_bed_dict
 
     chrs_list = chrs.strip().split(",") if chrs is not None else []
 
@@ -481,6 +495,10 @@ def _run_gci_inner(
         torch_device=torch_device,
         gaps=gaps,
         threshold=threshold,
+        # one switch point for the whole run, so both read types take the
+        # same path whatever the first one leaves on the card
+        slot_limit=(accum.stream_slot_limit(torch_device)
+                    if depth_backend == "device" else None),
     )
 
     if nano is None or hifi is None:
@@ -550,7 +568,7 @@ def _run_gci_inner(
         )
         host_plot_depths = [hifi_depths, nano_depths]
     if plot and is_primary_host():
-        from gci_tpu.viz.plot import plot_depth_files
+        from gci_tpu_torch.viz.plot import plot_depth_files
 
         plot_depth_files(
             [_host_view(d) for d in host_plot_depths], depth_min, depth_max,

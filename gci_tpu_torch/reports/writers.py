@@ -9,10 +9,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from gci_tpu.depth.base import ResidentDepth
-from gci_tpu.intervals import collapse_depth_dict
-from gci_tpu.io.bed import write_bed_dict
-from gci_tpu.utils import stage
+from gci_tpu_torch.depth.base import ResidentDepth
+from gci_tpu_torch.intervals import collapse_depth_dict
+from gci_tpu_torch.io.bed import write_bed_dict
+from gci_tpu_torch.utils.metrics import stage
 from gci_tpu_torch.parallel.distributed import is_primary_host
 from gci_tpu_torch.utils.files import require_writable
 

@@ -1,18 +1,26 @@
 """Continuity report (counterpart of ``gci_tpu.score.report``).
 
-``compute_continuity_report`` for a single-process run; the region
-sub-report, the score formula and the interval math are reused by import,
-so ``.gci`` and ``.regions.gci`` are the reference writer's bytes.
+``compute_continuity_report`` for a single-process run and the region
+sub-report, copied from the JAX package, so ``.gci`` and ``.regions.gci``
+are the reference writer's bytes (GCI.py:522-657).
 """
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 
-from gci_tpu.intervals import complement_dict, distance_merge_dict
-from gci_tpu.score.metrics import compute_n50, gci_score
-from gci_tpu.score.report import _SEPARATOR, _regions_report
+from gci_tpu_torch.depth.eventspace import DepthEvents
+from gci_tpu_torch.intervals import (
+    collapse_depth_runs,
+    complement_dict,
+    distance_merge_dict,
+)
 from gci_tpu_torch.parallel.distributed import is_primary_host
+from gci_tpu_torch.score.metrics import compute_n50, gci_score
 from gci_tpu_torch.utils.files import require_writable
+
+_SEPARATOR = "-" * 136 + "\n\n\n"
 
 
 def compute_continuity_report(
@@ -97,3 +105,100 @@ def compute_continuity_report(
         _regions_report(
             regions_path, regions_bed, depths_list, threshold, dist_percent,
         )
+
+
+def _one_region_scores(
+    depths_list, target, start, end, threshold, dist_percent
+):
+    """Per-type (gci, complement_lengths, contig_count) for one region.
+
+    The per-region score treats the region as ONE expected contig of length
+    end-start; the observed side is the complement of the zero-depth
+    intervals, with the contig count taken after distance-merging
+    (GCI.py:624-648).
+    """
+    span = end - start
+    out = []
+    for depthss in depths_list:
+        d = depthss[target]
+        if isinstance(d, DepthEvents):
+            issues = d.slice(start, end).collapse(-1, threshold, 0, start)
+        else:
+            issues = collapse_depth_runs(d[start:end], -1, threshold, 0, start)
+        comp_lengths = _complement_one(issues, start, end)
+        merged = _distance_merge_one(issues, span, dist_percent, start, end)
+        n_contigs = len(_complement_one(merged, start, end))
+        out.append(
+            (gci_score(span, compute_n50(comp_lengths), 1, n_contigs),
+             comp_lengths, n_contigs)
+        )
+    return out
+
+
+def _regions_report(
+    regions_path: str,
+    regions_bed: dict[str, list[tuple[int, int]]],
+    depths_list: list[dict[str, np.ndarray]],
+    threshold: int,
+    dist_percent: float,
+) -> None:
+    """Per-region GCI sub-report (GCI.py:610-657): one row per region, then
+    an All_regions summary pooling every VALID region's complements (rows
+    for zero/negative-span regions still print, but don't pool)."""
+    print("Computing GCI scores for regions ...")
+    n_types = len(depths_list)
+    valid_spans: list[int] = []
+    pooled_lengths: list[list[int]] = [[] for _ in range(n_types)]
+    pooled_contigs = [0] * n_types
+    for target, segments in regions_bed.items():
+        for start, end in segments:
+            valid = end - start > 0
+            if valid:
+                valid_spans.append(end - start)
+            else:
+                print(
+                    f'Warning!!! The region "{target}:{start}-{end}" is not available',
+                    file=sys.stderr,
+                )
+            per_type = _one_region_scores(
+                depths_list, target, start, end, threshold, dist_percent
+            )
+            if valid:
+                for i, (_, comp_lengths, n_contigs) in enumerate(per_type):
+                    pooled_lengths[i] += comp_lengths
+                    pooled_contigs[i] += n_contigs
+            with open(regions_path, "a") as f:
+                f.write(
+                    f"{target}\t{start}\t{end}\t"
+                    + "\t".join(str(row[0]) for row in per_type)
+                    + "\n"
+                )
+    summary = []
+    for i in range(n_types):
+        if pooled_contigs[i] == 0:
+            summary.append(0)
+        else:
+            summary.append(
+                gci_score(
+                    compute_n50(valid_spans),
+                    compute_n50(pooled_lengths[i]),
+                    len(valid_spans),
+                    pooled_contigs[i],
+                )
+            )
+    with open(regions_path, "a") as f:
+        f.write(_SEPARATOR)
+        f.write("All_regions\t*\t*\t" + "\t".join(map(str, summary)) + "\n")
+    print("Computing GCI scores for regions done!!!\n\n")
+
+
+def _complement_one(intervals, start, end):
+    from gci_tpu_torch.intervals import complement_intervals
+
+    return complement_intervals(intervals, 0, 0, start, end)
+
+
+def _distance_merge_one(intervals, length, dist_percent, start, end):
+    from gci_tpu_torch.intervals import distance_merge
+
+    return distance_merge(intervals, length, dist_percent, 0, start, end)

@@ -1,1 +1,2 @@
-"""File preconditions of the port (counterpart of ``gci_tpu.utils``)."""
+"""Stage metrics and file preconditions of the port (counterpart of
+``gci_tpu.utils``)."""

@@ -1,11 +1,11 @@
-"""The reused C++ host codec loads with or without libdeflate.
+"""The port's C++ host codec loads with or without libdeflate.
 
-Where libdeflate is missing, ``gci_tpu_torch.native.ensure_host_codec``
-builds ``gci_tpu/native/gci_native.cpp`` against the zlib-backed libdeflate
-API shim.  The subprocess below simulates that machine (gci_tpu.native's
-own build fails as it does without libdeflate.h, or its library does not
-load) and runs the pipeline; its outputs must inflate to the same bytes as
-this process's, which use the libdeflate build.
+Where libdeflate is missing, ``gci_tpu_torch.native`` builds
+``gci_tpu_torch/csrc/gci_native.cpp`` against the zlib-backed libdeflate
+API shim.  The subprocess below simulates that machine (the libdeflate
+build fails as it does without libdeflate.h, or its library does not load)
+and runs the pipeline; its outputs must inflate to the same bytes as this
+process's, which use the libdeflate build.
 """
 import gzip
 import os
@@ -25,22 +25,24 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent("""
     import subprocess, sys
     from pathlib import Path
-    from gci_tpu import native
-    import gci_tpu_torch.native as tnative
+    import gci_tpu_torch.native as native
 
     build_dir, ref, hifi, out, failure = sys.argv[1:]
     Path(build_dir).mkdir(parents=True)
-    native._SO = str(Path(build_dir) / "_gci_native.so")
+    native.BUILD_DIR = Path(build_dir)
     if failure == "build":
-        def no_libdeflate():
-            raise subprocess.CalledProcessError(
-                1, ["g++"], stderr=b"fatal error: libdeflate.h: No such file or directory")
+        compile_ = native._compile
 
-        native._build = no_libdeflate
+        def no_libdeflate(build, path):
+            if build == "libdeflate":
+                raise subprocess.CalledProcessError(
+                    1, ["g++"], stderr=b"fatal error: libdeflate.h: No such file or directory")
+            compile_(build, path)
+
+        native._compile = no_libdeflate
     else:  # a library that exists but does not load (built elsewhere)
-        Path(native._SO).write_bytes(b"not a shared library")
-    tnative.BUILD_DIR = Path(build_dir)
-    assert tnative.ensure_host_codec() == "zlib shim"
+        native._library_path("libdeflate").write_bytes(b"not a shared library")
+    assert native.ensure_host_codec() == "zlib shim"
     assert Path(native.get_lib()._name).parent == Path(build_dir)
 
     from gci_tpu_torch.pipeline import run_gci
@@ -86,3 +88,20 @@ def test_zlib_shim_codec_gives_identical_outputs(tmp_path, failure):
         with open(os.path.join(out_shim, name), "rb") as a, \
                 open(os.path.join(out_lib, name), "rb") as b:
             assert a.read() == b.read(), name
+
+
+def test_no_build_raises_host_codec_error(tmp_path, monkeypatch):
+    """When neither build works, the error carries each build's message."""
+    import subprocess
+
+    import gci_tpu_torch.native as native
+
+    def fails(build, path):
+        raise subprocess.CalledProcessError(1, ["g++"], stderr=f"no {build}".encode())
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "_compile", fails)
+    with pytest.raises(native.HostCodecError, match="libdeflate: no libdeflate") as exc:
+        native.ensure_host_codec()
+    assert "zlib shim: no zlib shim" in str(exc.value)

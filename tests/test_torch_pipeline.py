@@ -71,7 +71,7 @@ def inputs(tmp_path_factory):
     return dict(ref=ref, hifi=hifi_bam, nano=nano_bam, regions=regions, paf=paf)
 
 
-@pytest.mark.parametrize("backend", ["device", "events", "numpy"])
+@pytest.mark.parametrize("backend", ["device", "streamed", "events", "numpy"])
 def test_single_type_with_gaps_matches_jax(inputs, tmp_path, backend):
     d_ref, d_got = str(tmp_path / "ref"), str(tmp_path / "got")
     kw = dict(hifi=[inputs["hifi"]], reference=inputs["ref"], prefix="F")
@@ -138,20 +138,66 @@ def test_existing_output_needs_force(inputs, tmp_path):
     run_gci(force=True, **kw)
 
 
-@pytest.mark.parametrize("backend", ["sharded", "streamed"])
+@pytest.mark.parametrize("backend", ["sharded"])
 def test_unported_backends_raise(inputs, tmp_path, backend):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         run_gci(hifi=[inputs["hifi"]], reference=inputs["ref"],
                 directory=str(tmp_path), depth_backend=backend)
 
 
-def test_genome_above_single_device_limit_raises(inputs, tmp_path, monkeypatch):
-    import gci_tpu_torch.pipeline as pipeline
+def _spy_streamed(monkeypatch):
+    """Record each call of the streamed path (pipeline imports it per call)."""
+    import gci_tpu_torch.depth.streamed as streamed
 
-    monkeypatch.setattr(pipeline, "SINGLE_DEVICE_SLOT_LIMIT", 1000)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_gci(hifi=[inputs["hifi"]], reference=inputs["ref"],
-                directory=str(tmp_path), depth_backend="device", torch_device="cpu")
+    calls = []
+    real = streamed.events_from_reads_streamed
+    monkeypatch.setattr(streamed, "events_from_reads_streamed",
+                        lambda *a, **k: (calls.append(1), real(*a, **k))[1])
+    return calls
+
+
+def test_dual_type_streamed_many_chunks_matches_jax_events(inputs, tmp_path, monkeypatch):
+    """--device streamed with 4096-slot chunks (runs cross chunk borders)
+    against gci_tpu's events backend, every output byte for byte."""
+    import gci_tpu_torch.depth.streamed as streamed
+
+    monkeypatch.setattr(streamed, "CHUNK_SLOTS", 4096)
+    calls = _spy_streamed(monkeypatch)
+    d_ref, d_got = str(tmp_path / "ref"), str(tmp_path / "got")
+    kw = dict(hifi=[inputs["hifi"]], nano=[inputs["nano"]], reference=inputs["ref"],
+              prefix="F", regions=inputs["regions"], threshold=1)
+    jax_run_gci(directory=d_ref, depth_backend="events", **kw)
+    run_gci(directory=d_got, depth_backend="streamed", torch_device="cpu", **kw)
+    assert len(calls) == 2  # HiFi and ONT
+    _diff_outputs(
+        d_ref, d_got,
+        ["F_hifi.depth.gz", "F_nano.depth.gz", "F_two_type.depth.gz",
+         "F_hifi.1.depth.bed", "F_nano.1.depth.bed", "F_two_type.1.depth.bed",
+         "F.gci", "F.regions.gci", "F.gaps.bed"],
+    )
+
+
+@pytest.mark.parametrize("limit", [1000, 10**9])
+def test_device_switches_to_streamed_past_the_limit(inputs, tmp_path, monkeypatch, limit):
+    """--device device streams a genome past accum.stream_slot_limit (both
+    read types, decided once per run) and stays resident below it; either
+    way the outputs equal gci_tpu's events run."""
+    import gci_tpu_torch.depth.accum as accum
+
+    monkeypatch.setattr(accum, "stream_slot_limit", lambda device: limit)
+    calls = _spy_streamed(monkeypatch)
+    d_ref, d_got = str(tmp_path / "ref"), str(tmp_path / "got")
+    kw = dict(hifi=[inputs["hifi"]], nano=[inputs["nano"]], reference=inputs["ref"],
+              prefix="F", regions=inputs["regions"])
+    jax_run_gci(directory=d_ref, depth_backend="events", **kw)
+    run_gci(directory=d_got, depth_backend="device", torch_device="cpu", **kw)
+    assert len(calls) == (2 if limit < sum(LENS) else 0)
+    _diff_outputs(
+        d_ref, d_got,
+        ["F_hifi.depth.gz", "F_nano.depth.gz", "F_two_type.depth.gz",
+         "F_hifi.0.depth.bed", "F_nano.0.depth.bed", "F_two_type.0.depth.bed",
+         "F.gci", "F.regions.gci", "F.gaps.bed"],
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -170,8 +216,23 @@ def test_cli_device_without_cuda_exits(inputs, tmp_path, monkeypatch, capsys):
     assert not os.path.exists(out)
 
 
+@pytest.mark.parametrize("backend", ["streamed", "auto"])
+def test_cli_gpu_backends_without_cuda_exit(inputs, tmp_path, monkeypatch, backend):
+    """--device streamed and auto run on the card: with no CUDA they exit
+    with an error and write nothing."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("GCI_AUTO_BACKEND", raising=False)
+    out = str(tmp_path / "out")
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["-r", inputs["ref"], "--hifi", inputs["hifi"], "-d", out,
+                  "--device", backend])
+    assert exc.value.code not in (0, None)
+    assert "torch.cuda.is_available() is false" in str(exc.value.code)
+    assert not os.path.exists(out)
+
+
 @pytest.mark.parametrize("flags", [
-    ["--device", "sharded"], ["--device", "streamed"], ["--mesh", "1,1"],
+    ["--device", "sharded"], ["--mesh", "1,1"],
     ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
     ["--process-id", "0"], ["--profile-trace", "trace_dir"],
 ])
@@ -199,16 +260,28 @@ def test_cli_events_matches_jax(inputs, tmp_path, capsys):
     )
 
 
-def test_auto_backend(monkeypatch):
+def test_auto_backend(inputs, tmp_path, monkeypatch):
+    """auto is device, with or without a card: without one it raises, and
+    the CLI's default run exits non-zero with no output directory."""
     from gci_tpu_torch.depth import resolve_auto_backend
+    from gci_tpu_torch.pipeline import resolve_backend
 
     monkeypatch.delenv("GCI_AUTO_BACKEND", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert resolve_auto_backend() == "events"
+    assert resolve_auto_backend() == "device"
+    with pytest.raises(RuntimeError, match="is_available"):
+        resolve_backend("auto")
+    out = str(tmp_path / "out")
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["-r", inputs["ref"], "--hifi", inputs["hifi"], "-d", out])
+    assert exc.value.code not in (0, None)
+    assert not os.path.exists(out)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_auto_backend() == "device"
     monkeypatch.setenv("GCI_AUTO_BACKEND", "numpy")
     assert resolve_auto_backend() == "numpy"
+    monkeypatch.setenv("GCI_AUTO_BACKEND", "streamed")
+    assert resolve_auto_backend() == "streamed"
     monkeypatch.setenv("GCI_AUTO_BACKEND", "sharded")
     with pytest.raises(ValueError):
         resolve_auto_backend()
