@@ -39,11 +39,25 @@ Phases, each printing its results:
    device``, which must take the streamed path at its switch point
    (``accum.stream_slot_limit``), and with ``--device events``, nine outputs
    identical.  Each prints its chunks, walls, stages, peak device memory
-   and host peak RSS.
+   and host peak RSS;
+7. the side-car tools (``gci_tpu_torch.tools``) on what the device paths of
+   phases 5 and 6 wrote, each with its wall time and host RSS above its
+   start: (a) ``score_only.main`` on the packed run's three MH63
+   checkpoints and (b) on the T2T device run's three 3.1 Gbp checkpoints,
+   each reproducing that run's ``.gci``, ``.regions.gci`` and ``.gaps.bed``,
+   and as ``<prefix>.0.depth.bed`` its two-type issue BED (the type scored
+   last writes the shared name); (c) ``filter_bam.main -t 8`` on the
+   200,000-record HiFi BAM, read back coordinate-sorted with every BAI
+   chunk start decoding to a record of its reference; (d)
+   ``convert_depth.main`` on a ``samtools depth`` text of the first 2 Mbp
+   of two chromosomes of the packed run's HiFi depth, read back equal.  The
+   tools launch no kernel.  The plot tools are not run here (the card's
+   machine is not known to have matplotlib); the CPU tests hold them
+   against ``gci_tpu``'s.
 
-Launch counts are set to 0 just before each path of phases 4 to 6 runs and
-read just after, and each path must have launched its kernels (and not the
-scans of the other paths).  The script prints one JSON line with each
+Launch counts are set to 0 just before each path of phases 4 to 7 runs and
+read just after, and each path of phases 4 to 6 must have launched its
+kernels (and not the scans of the other paths).  The script prints one JSON line with each
 kernel's launches on its path and on every path, error, times and bound,
 then as its last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and exits nonzero; so does a machine without CUDA.  Inputs are
@@ -55,11 +69,13 @@ import gzip
 import json
 import os
 import resource
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -86,8 +102,11 @@ from gci_tpu_torch.depth.scan import (
     fused_depth_scan_torch,
 )
 from gci_tpu_torch.intervals.collapse import collapse_depth_runs
+from gci_tpu_torch.io.bam import BamStream
 from gci_tpu_torch.io.bam_writer import build_record, write_bam
+from gci_tpu_torch.io.depth_file import read_depth_gz, read_depth_gz_events
 from gci_tpu_torch.native import ensure_host_codec
+from gci_tpu_torch.tools import convert_depth, filter_bam, score_only
 from gci_tpu_torch.utils.metrics import get_metrics
 
 SEED = 63
@@ -116,6 +135,7 @@ T2T_SIZES_MBP = [
 ]
 T2T_READS = 160_000  # per read type
 RESIDENT_MH63_PEAK = 9_897_666_048  # bytes, the resident path's peak at MH63 size
+CONVERT_BP = 2_000_000  # phase 7d: lines of samtools-depth text per chromosome
 
 
 def outputs(prefix: str) -> list[str]:
@@ -749,9 +769,10 @@ def phase_streamed_mh63(paths, work: str) -> dict[str, int]:
     return launches
 
 
-def phase_streamed_t2t(work: str, packed_peak: int) -> dict[str, int]:
+def phase_streamed_t2t(work: str, packed_peak: int) -> tuple[dict[str, int], dict, str]:
     """6b: a 3.1 Gbp dual-type genome through --device device, which must
-    take the streamed path, against --device events."""
+    take the streamed path, against --device events.  Returns the launches,
+    the inputs and the device run's directory."""
     lengths = t2t_lengths()
     layout = GenomeLayout.from_targets(lengths)
     check(layout.total_slots == T2T_TOTAL_BP + len(lengths), "T2T slot count")
@@ -780,7 +801,143 @@ def phase_streamed_t2t(work: str, packed_peak: int) -> dict[str, int]:
                        "--device device (streamed path)")
     log(f"[streamed] T2T: all {len(outputs(T2T_PREFIX))} outputs identical to the "
         "events run")
-    return launches
+    return launches, paths, dirs["device"]
+
+
+# ---------------------------------------------------------------------------
+# 7. the side-car tools on what the device paths wrote
+# ---------------------------------------------------------------------------
+
+def run_tool(label: str, main, argv: list[str]) -> float:
+    """``main(argv)`` with its wall time and host RSS above its start."""
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        main(argv)
+        wall = time.perf_counter() - t0
+    log(f"[tools] {label}: {wall:.3f} s wall; host RSS {rss.start} bytes at its start, "
+        f"peak {rss.peak} bytes, {rss.peak - rss.start} bytes above the start")
+    return wall
+
+
+def phase_tools_score(paths, run_dir: str, out_dir: str, prefix: str, label: str) -> None:
+    """7a/7b: gci-torch-score on a dual-type run's three checkpoints; the
+    run's .gci, .regions.gci and .gaps.bed again, and the two-type issue BED
+    under the shared name (the type scored last writes it)."""
+    argv = ["-r", paths["ref"]]
+    for kind, flag in (("hifi", "--hifi"), ("nano", "--nano"), ("two_type", "--two-type")):
+        argv += [flag, os.path.join(run_dir, f"{prefix}_{kind}.depth.gz")]
+    argv += ["-R", paths["regions"], "-d", out_dir, "-o", prefix, "-f"]
+    run_tool(f"{label} gci-torch-score on 3 checkpoints", score_only.main, argv)
+    for name in (f"{prefix}.gci", f"{prefix}.regions.gci", f"{prefix}.gaps.bed"):
+        check(_same_file(os.path.join(out_dir, name), os.path.join(run_dir, name)),
+              f"{label}: rescored {name} differs from the device run's")
+    check(_same_file(os.path.join(out_dir, f"{prefix}.0.depth.bed"),
+                     os.path.join(run_dir, f"{prefix}_two_type.0.depth.bed")),
+          f"{label}: rescored {prefix}.0.depth.bed differs from the two-type issue BED")
+    log(f"[tools] {label}: {prefix}.gci, {prefix}.regions.gci, {prefix}.gaps.bed and "
+        "the two-type issue BED identical to the device run's")
+
+
+def bai_chunk_starts(bam_path: str) -> list[tuple[int, int, bytes]]:
+    """(reference of the bin, ref_id, read name) of the record at every
+    chunk start of the BAI: each virtual offset decoded into its BGZF block
+    and the record there, which may run on into the next block."""
+    with open(bam_path + ".bai", "rb") as f:
+        index = f.read()
+    check(index[:4] == b"BAI\x01", "the BAI's magic")
+    with open(bam_path, "rb") as f:
+        blob = f.read()
+    blocks: dict[int, bytes] = {}
+
+    def inflate(coff: int) -> tuple[bytes, int]:
+        """The payload of the block at coff, and the next block's offset."""
+        xlen = blob[coff + 10] | (blob[coff + 11] << 8)
+        (bsize,) = struct.unpack_from("<H", blob, coff + 16)
+        end = coff + bsize + 1
+        return zlib.decompress(blob[coff + 12 + xlen : end - 8], -15), end
+
+    (n_ref,) = struct.unpack_from("<i", index, 4)
+    off, found = 8, []
+    for ref in range(n_ref):
+        (n_bin,) = struct.unpack_from("<i", index, off)
+        off += 4
+        for _ in range(n_bin):
+            _bin, n_chunk = struct.unpack_from("<Ii", index, off)
+            off += 8
+            for _ in range(n_chunk):
+                vo_s, _vo_e = struct.unpack_from("<QQ", index, off)
+                off += 16
+                coff, uoff = vo_s >> 16, vo_s & 0xFFFF
+                if coff not in blocks:
+                    payload, nxt = inflate(coff)
+                    if nxt < len(blob):  # a record is shorter than a block
+                        payload += inflate(nxt)[0]
+                    blocks[coff] = payload
+                rec = blocks[coff][uoff:]
+                (ref_id,) = struct.unpack_from("<i", rec, 4)
+                found.append((ref, ref_id, rec[36 : 36 + rec[12] - 1]))
+        (n_intv,) = struct.unpack_from("<i", index, off)
+        off += 4 + 8 * n_intv
+    return found
+
+
+def phase_tools_filter_bam(paths, out_dir: str) -> None:
+    """7c: gci-torch-filter-bam on the 200,000-record HiFi BAM, read back;
+    every BAI chunk start a record of the BAM on the bin's reference."""
+    wall = run_tool("MH63 gci-torch-filter-bam -t 8", filter_bam.main,
+                    [paths["hifi"], "-d", out_dir, "-t", "8", "-f"])
+    out = os.path.join(out_dir, "hifi.filter.bam")
+    names, keys = set(), []
+    with BamStream(out, threads=8, keep_names=True) as stream:
+        for chunk in stream:
+            names.update(chunk.names)
+            keys.append(chunk.columns["ref_id"].astype(np.int64) << 32
+                        | chunk.columns["pos"].astype(np.int64))
+    keys = np.concatenate(keys)
+    n_records = keys.shape[0]
+    check(n_records > N_HIFI // 2, f"filter-bam kept only {n_records} records")
+    check(len(names) == n_records, "filter-bam wrote a read name twice")
+    check(bool(np.all(np.diff(keys) >= 0)), "filter-bam output is not coordinate-sorted")
+    starts = bai_chunk_starts(out)
+    check(all(ref == ref_id and name in names for ref, ref_id, name in starts),
+          "a BAI offset does not decode to a record of its reference")
+    log(f"[tools] MH63 filter-bam: {N_HIFI} input records, {n_records} kept, "
+        f"coordinate-sorted, {N_HIFI / wall:.1f} input records/s; all {len(starts)} "
+        "BAI chunk starts decode to records of their reference")
+
+
+def phase_tools_convert(run_dir: str, out_dir: str) -> None:
+    """7d: a samtools-depth text of the first CONVERT_BP of two chromosomes
+    of the packed run's HiFi depth, through gci-torch-convert-depth, read
+    back equal."""
+    depths, _ = read_depth_gz_events(os.path.join(run_dir, f"{PREFIX}_hifi.depth.gz"))
+    want = {t: depths[t].slice(0, CONVERT_BP).materialize() for t in list(depths)[:2]}
+    src = os.path.join(out_dir, "samtools.depth")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(src, "w") as f:
+        for t, v in want.items():
+            f.write("".join(f"{t}\t{i}\t{d}\n" for i, d in enumerate(v.tolist(), 1)))
+    prefix = os.path.join(out_dir, "converted")
+    wall = run_tool(f"gci-torch-convert-depth of {len(want)} x {CONVERT_BP} lines",
+                    convert_depth.main, [src, prefix])
+    got, _ = read_depth_gz(prefix + ".depth.gz")
+    check(list(got) == list(want) and all(np.array_equal(got[t], want[t]) for t in want),
+          "convert-depth output differs from its input")
+    log(f"[tools] convert-depth: read back equal, {len(want) * CONVERT_BP / wall:.1f} "
+        "lines/s")
+
+
+def phase_tools(paths, t2t_paths, t2t_dir: str, work: str) -> None:
+    """7: the side-car tools on the outputs of phases 5 and 6; they launch
+    no kernel."""
+    kernels.reset_launch_counts()
+    phase_tools_score(paths, os.path.join(work, "packed"), os.path.join(work, "score_mh63"),
+                      PREFIX, "MH63")
+    phase_tools_score(t2t_paths, t2t_dir, os.path.join(work, "score_t2t"), T2T_PREFIX, "T2T")
+    phase_tools_filter_bam(paths, os.path.join(work, "filter_bam"))
+    phase_tools_convert(os.path.join(work, "packed"), os.path.join(work, "convert"))
+    check(not any(kernels.LAUNCHES.values()), "a side-car tool launched a kernel")
+    log("[tools] no kernel launched by the side-car tools")
 
 
 def main() -> None:
@@ -799,7 +956,8 @@ def main() -> None:
         main_launches, packed_peak = phase_main_path(paths, work)
         launches.update(main_launches)
         launches["streamed_mh63"] = phase_streamed_mh63(paths, work)
-        launches["streamed_3g"] = phase_streamed_t2t(work, packed_peak)
+        launches["streamed_3g"], t2t_paths, t2t_dir = phase_streamed_t2t(work, packed_peak)
+        phase_tools(paths, t2t_paths, t2t_dir, work)
     check("jax" not in sys.modules and "gci_tpu" not in sys.modules,
           "jax or the JAX package was imported")
 

@@ -229,10 +229,13 @@ def main(argv: list[str] | None = None) -> None:
         sys.exit()
     validate_args(args)
     for flag, key in _NOT_PORTED_FLAGS:
-        if args.pop(key) is not None:
+        if args[key] is not None:
             _not_ported(flag)
     if args["depth_backend"] == "sharded":
         _not_ported("--device sharded")
+    # gci_tpu.cli hands these three to its multi-host set-up, not to the echo
+    for key in ("coordinator", "num_processes", "process_id"):
+        del args[key]
 
     from gci_tpu_torch.pipeline import resolve_backend, run_gci
 
@@ -242,6 +245,8 @@ def main(argv: list[str] | None = None) -> None:
         sys.exit(f"ERROR!!! --device {args['depth_backend']}: {exc}")
     print(f"Used arguments:{args}")
     args["depth_backend"] = backend
+    # echoed as gci_tpu.cli echoes them; None here, and not run_gci's
+    del args["mesh"], args["profile_trace"]
     run_gci(**args, torch_device=torch_device)
 
 

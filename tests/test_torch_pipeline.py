@@ -260,6 +260,31 @@ def test_cli_events_matches_jax(inputs, tmp_path, capsys):
     )
 
 
+@pytest.mark.parametrize("extra", [
+    [], ["-R", "regions", "-ts", "1", "--profile"], ["--chrs", "chrA,chrC", "-t", "2"],
+])
+def test_cli_echo_matches_jax(inputs, tmp_path, capsys, extra):
+    """The ``Used arguments:`` line of the port's CLI is gci_tpu.cli's, on
+    the same argv in the same directory, and so are the outputs."""
+    from gci_tpu.cli import main as jax_main
+
+    out = str(tmp_path / "out")
+    argv = ["-r", inputs["ref"], "--hifi", inputs["hifi"], "--nano", inputs["nano"],
+            "-d", out, "-o", "E", "-f", "--device", "events"]
+    argv += [inputs["regions"] if a == "regions" else a for a in extra]
+    echoes, files = [], []
+    for main in (jax_main, cli.main):
+        main(argv)
+        echoes.append([l for l in capsys.readouterr().out.splitlines()
+                       if l.startswith("Used arguments:")])
+        files.append(sorted(os.listdir(out)))
+        os.rename(out, f"{out}_{len(files)}")
+    assert len(echoes[0]) == 1 and echoes[1] == echoes[0]
+    assert "'mesh': None" in echoes[0][0] and "'profile_trace': None" in echoes[0][0]
+    assert files[1] == files[0]
+    _diff_outputs(f"{out}_1", f"{out}_2", files[0])
+
+
 def test_auto_backend(inputs, tmp_path, monkeypatch):
     """auto is device, with or without a card: without one it raises, and
     the CLI's default run exits non-zero with no output directory."""
