@@ -53,10 +53,29 @@ Phases, each printing its results:
    of two chromosomes of the packed run's HiFi depth, read back equal.  The
    tools launch no kernel.  The plot tools are not run here (the card's
    machine is not known to have matplotlib); the CPU tests hold them
-   against ``gci_tpu``'s.
+   against ``gci_tpu``'s;
+8. the pack<->scatter overlap (``depth/overlap.py``), which the CLI does
+   not take: each read type's BAM packed by ``overlap.feed_bam`` into an
+   accumulator on the card ("on"), against ``pipeline.run_filter`` on the
+   same BAM chunks ("off", the depth of the curated reads), each for the
+   HiFi and the ONT BAM: (a) the MH63-shaped inputs into the resident
+   delta, then ``DeviceDepth.from_delta``'s packed branch (K1 once per
+   type, K3 not), (b) the same with ``PACKED_DEPTH_LIMIT`` 1 (its flags
+   branch: K3 once per type, K1 not), (c) the same inputs into the
+   coordinate sweep over phase 6a's 4 chunks and (d) phase 6b's 3.1 Gbp
+   inputs into the sweep over its 12 chunks (K2 and K2 int8 once per
+   chunk and type in both).  The BAMs are read in chunks of 128 KiB (at
+   least 20 per BAM, checked) and, in (a) and (d), again at run_filter's
+   default 64 MiB.  Every checkpoint, on and off, must equal the events
+   run's of phase 5 or 6b; the peak device memory must be at most the
+   resident path's (``RESIDENT_MH63_PEAK``) in (a) and (b); at 128 KiB the
+   sweep must finalize genome chunks during pack and stay below that
+   peak.  Each prints, on and off, the pack and depth seconds, the
+   last-wins fold's seconds, BAM chunks, rows retracted, chunks finalized
+   during pack, peak device memory and host RSS.
 
-Launch counts are set to 0 just before each path of phases 4 to 7 runs and
-read just after, and each path of phases 4 to 6 must have launched its
+Launch counts are set to 0 just before each path of phases 4 to 8 runs and
+read just after, and each path of phases 4 to 6 and 8 must have launched its
 kernels (and not the scans of the other paths).  The script prints one JSON line with each
 kernel's launches on its path and on every path, error, times and bound,
 then as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -69,6 +88,7 @@ import gzip
 import json
 import os
 import resource
+import shutil
 import struct
 import subprocess
 import sys
@@ -104,8 +124,11 @@ from gci_tpu_torch.depth.scan import (
 from gci_tpu_torch.intervals.collapse import collapse_depth_runs
 from gci_tpu_torch.io.bam import BamStream
 from gci_tpu_torch.io.bam_writer import build_record, write_bam
-from gci_tpu_torch.io.depth_file import read_depth_gz, read_depth_gz_events
+from gci_tpu_torch.depth.overlap import DeltaAccumulator, SweepAccumulator, feed_bam
+from gci_tpu_torch.io.depth_file import read_depth_gz, read_depth_gz_events, write_depth_gz
+from gci_tpu_torch.io.fasta import scan_fasta
 from gci_tpu_torch.native import ensure_host_codec
+from gci_tpu_torch.pipeline import run_filter
 from gci_tpu_torch.tools import convert_depth, filter_bam, score_only
 from gci_tpu_torch.utils.metrics import get_metrics
 
@@ -136,6 +159,33 @@ T2T_SIZES_MBP = [
 T2T_READS = 160_000  # per read type
 RESIDENT_MH63_PEAK = 9_897_666_048  # bytes, the resident path's peak at MH63 size
 CONVERT_BP = 2_000_000  # phase 7d: lines of samtools-depth text per chromosome
+# phase 8: BAM chunks of 128 KiB inflated, so that each BAM arrives in at
+# least 20 (at run_filter's default 64 MiB the MH63 HiFi BAM is one)
+OVERLAP_BAM_CHUNK_BYTES = 128 << 10
+DEFAULT_BAM_CHUNK_BYTES = 64 << 20
+OVERLAP_MIN_BAM_CHUNKS = 20
+OVERLAP_CASES = {
+    # launches_by_path key: the case's label and inputs, its accumulator,
+    # run_filter's --device for the run without it, the sweep's chunk,
+    # PACKED_DEPTH_LIMIT, the BAM chunk sizes (the first one's launches
+    # count) and exact launch counts of the two read types' overlap runs
+    "overlap_packed": dict(
+        label="8a MH63 resident delta", inputs="mh63", acc="delta", backend="device",
+        bam_chunk_bytes=(OVERLAP_BAM_CHUNK_BYTES, DEFAULT_BAM_CHUNK_BYTES),
+        exact={"fused_depth_scan_packed": 2, "fused_depth_scan_flags": 0}),
+    "overlap_flags": dict(
+        label="8b MH63 resident delta, PACKED_DEPTH_LIMIT 1", inputs="mh63", acc="delta",
+        backend="device", limit=1, bam_chunk_bytes=(OVERLAP_BAM_CHUNK_BYTES,),
+        exact={"fused_depth_scan_flags": 2, "fused_depth_scan_packed": 0}),
+    "overlap_sweep_mh63": dict(
+        label="8c MH63 sweep", inputs="mh63", acc="sweep", backend="streamed",
+        chunk=MH63_STREAM_CHUNK, bam_chunk_bytes=(OVERLAP_BAM_CHUNK_BYTES,)),
+    "overlap_sweep_3g": dict(
+        label="8d T2T sweep", inputs="t2t", acc="sweep", backend="device",
+        bam_chunk_bytes=(OVERLAP_BAM_CHUNK_BYTES, DEFAULT_BAM_CHUNK_BYTES)),
+}
+# the stages of a run_filter call from the BAM to the depth on the host
+PACK_TO_DEPTH_STAGES = ("bam_pack", "curation", "depth_accumulate", "checkpoint_readback")
 
 
 def outputs(prefix: str) -> list[str]:
@@ -940,6 +990,158 @@ def phase_tools(paths, t2t_paths, t2t_dir: str, work: str) -> None:
     log("[tools] no kernel launched by the side-car tools")
 
 
+# ---------------------------------------------------------------------------
+# 8. the pack<->scatter overlap
+# ---------------------------------------------------------------------------
+
+class _Setting:
+    """While active: ``GCI_BAM_CHUNK_BYTES`` in this process's environment
+    and ``fused.PACKED_DEPTH_LIMIT`` (unless None) set, restored after."""
+
+    def __init__(self, chunk_bytes: int, limit: int | None):
+        self.chunk_bytes, self.limit = chunk_bytes, limit
+
+    def __enter__(self):
+        self._env = os.environ.get("GCI_BAM_CHUNK_BYTES")
+        self._limit = fused.PACKED_DEPTH_LIMIT
+        os.environ["GCI_BAM_CHUNK_BYTES"] = str(self.chunk_bytes)
+        if self.limit is not None:
+            fused.PACKED_DEPTH_LIMIT = self.limit
+        return self
+
+    def __exit__(self, *exc):
+        fused.PACKED_DEPTH_LIMIT = self._limit
+        if self._env is None:
+            os.environ.pop("GCI_BAM_CHUNK_BYTES", None)
+        else:
+            os.environ["GCI_BAM_CHUNK_BYTES"] = self._env
+
+
+def overlap_on(case, layout, bam: str, gaps, chunk_bytes: int, dev, ckpt: str) -> dict:
+    """One BAM through ``feed_bam`` into the case's accumulator, then its
+    depth (``from_delta`` and the boundary readback, or the sweep's
+    ``finish``), written to ``ckpt``; its seconds and counts."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        if case["acc"] == "delta":
+            acc = DeltaAccumulator(layout, 15, device=dev)
+        else:
+            acc = SweepAccumulator(layout, 15, case.get("chunk"), device=dev)
+        n_bam = feed_bam(acc, bam, threads=8, chunk_bytes=chunk_bytes)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        finalized = getattr(acc, "frontier", 0)
+        if case["acc"] == "delta":
+            depths = DeviceDepth.from_delta(layout, acc.take_delta(), 15, gaps=gaps,
+                                            issue_range=(-1, 0))
+            depths.to_events()
+        else:
+            depths = acc.finish()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    write_depth_gz(ckpt, depths)
+    del depths
+    return dict(pack_s=t1 - t0, depth_s=t2 - t1, sum_s=t2 - t0,
+                fold_s=acc.fold_seconds, bam_chunks=n_bam,
+                rows_retracted=acc.rows_retracted, chunks_finalized_in_pack=finalized,
+                peak=peak, rss_above_start=rss.peak - rss.start)
+
+
+def overlap_off(case, bam: str, gaps, read_type: str, dev, out_dir: str, prefix: str) -> dict:
+    """The same BAM through ``run_filter`` (the depth of the curated
+    reads); its pack-to-depth stages in seconds."""
+    get_metrics().reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as rss, StreamedCalls(case.get("chunk")):
+        depths, _ = run_filter([], [bam], prefix, directory=out_dir, force=True,
+                               log_reads_type=read_type, threads=8,
+                               depth_backend=case["backend"], torch_device=dev,
+                               gaps=gaps, threshold=0)
+        torch.cuda.synchronize()
+    del depths
+    out = {}
+    for r in get_metrics().records:
+        kind = r.name.partition(":")[2].partition(":")[0]  # <type>:bam_pack:<path>
+        if kind in PACK_TO_DEPTH_STAGES:
+            out[f"{kind}_s"] = r.seconds
+    out["sum_s"] = sum(out.values())
+    return dict(out, peak=torch.cuda.max_memory_allocated(),
+                rss_above_start=rss.peak - rss.start)
+
+
+def phase_overlap(inputs, dev) -> dict[str, dict[str, int]]:
+    """8: each OVERLAP_CASES case for both read types, with the overlap
+    ("on") and through run_filter ("off"), every checkpoint equal to the
+    events run's.  Returns the launches of each case's overlap runs at its
+    first BAM chunk size."""
+    launches = {}
+    for key, case in OVERLAP_CASES.items():
+        paths, prefix, events_dir, lengths, work = inputs[case["inputs"]]
+        layout = GenomeLayout.from_targets(lengths)
+        gaps = scan_fasta(paths["ref"])[1]
+        n_chunks = -(-layout.total_slots // case.get("chunk", streamed.CHUNK_SLOTS))
+        for chunk_bytes in case["bam_chunk_bytes"]:
+            label = f"{case['label']}, BAM chunks of {chunk_bytes} bytes"
+            out = os.path.join(work, f"{key}_{chunk_bytes}")
+            os.makedirs(out)
+            runs = {"on": {}, "off": {}}
+            with _Setting(chunk_bytes, case.get("limit")):
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                for typ, name in (("hifi", "hifi"), ("ont", "nano")):
+                    ckpt = os.path.join(out, f"on_{name}.depth.gz")
+                    runs["on"][typ] = overlap_on(case, layout, paths[typ], gaps, chunk_bytes,
+                                                 dev, ckpt)
+                    check(_same_file(ckpt, os.path.join(events_dir,
+                                                        f"{prefix}_{name}.depth.gz")),
+                          f"{label}: the {typ} overlap checkpoint differs from the events run")
+                torch.cuda.synchronize()
+                counts = dict(kernels.LAUNCHES)
+                for typ, name in (("hifi", "hifi"), ("ont", "nano")):
+                    runs["off"][typ] = overlap_off(case, paths[typ], gaps, typ, dev, out,
+                                                   f"off_{name}")
+                    check(_same_file(os.path.join(out, f"off_{name}.depth.gz"),
+                                     os.path.join(events_dir, f"{prefix}_{name}.depth.gz")),
+                          f"{label}: the {typ} run_filter checkpoint differs from the events run")
+            shutil.rmtree(out)
+            first = chunk_bytes == case["bam_chunk_bytes"][0]
+            for typ, r in runs["on"].items():
+                if first:
+                    check(r["bam_chunks"] >= OVERLAP_MIN_BAM_CHUNKS,
+                          f"{label}: {typ} BAM in {r['bam_chunks']} chunks, fewer than "
+                          f"{OVERLAP_MIN_BAM_CHUNKS}")
+                    check(case["acc"] == "delta" or r["chunks_finalized_in_pack"] > 0,
+                          f"{label}: the sweep finalized no chunk during the {typ} pack")
+                    # a BAM in one chunk leaves every sweep chunk live until
+                    # finish: its peak is then the whole genome's delta
+                    check(case["acc"] == "delta" or r["peak"] < RESIDENT_MH63_PEAK,
+                          f"{label}: {typ} peak {r['peak']} bytes not below the resident path's")
+                check(case["acc"] == "sweep" or r["peak"] <= RESIDENT_MH63_PEAK,
+                      f"{label}: {typ} peak {r['peak']} bytes above the resident path's")
+            log(f"[overlap] {label}: both checkpoints, on and off, identical to the events "
+                f"run; launches on {counts}")
+            for state in ("on", "off"):
+                log(f"[overlap] {label}: {state} " + json.dumps(runs[state]))
+            if not first:
+                continue
+            if case["acc"] == "sweep":
+                check_streamed_launches(counts, n_chunks, label)
+                absent = ("fused_depth_scan_packed", "fused_depth_scan_flags")
+                check(not any(counts[k] for k in absent),
+                      f"{label}: a resident scan was launched")
+            else:
+                check(counts["depth_scan_int8"] > 0,
+                      f"{label}: the boundary readback launched no int8 scan")
+            for k, n in case.get("exact", {}).items():
+                check(counts[k] == n, f"{label}: {k} launched {counts[k]} times, expected {n}")
+            launches[key] = counts
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
@@ -958,6 +1160,11 @@ def main() -> None:
         launches["streamed_mh63"] = phase_streamed_mh63(paths, work)
         launches["streamed_3g"], t2t_paths, t2t_dir = phase_streamed_t2t(work, packed_peak)
         phase_tools(paths, t2t_paths, t2t_dir, work)
+        launches.update(phase_overlap({
+            "mh63": (paths, PREFIX, os.path.join(work, "events"), lengths, work),
+            "t2t": (t2t_paths, T2T_PREFIX, os.path.join(work, "t2t_events"), t2t_lengths(),
+                    work),
+        }, dev))
     check("jax" not in sys.modules and "gci_tpu" not in sys.modules,
           "jax or the JAX package was imported")
 

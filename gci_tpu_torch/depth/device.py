@@ -49,13 +49,22 @@ def pack_read_deltas(
 
 def scatter_events(pad_total: int, device: torch.device, events) -> torch.Tensor:
     """int32 zeros(pad_total) plus every (indices, value) event, in one
-    ``index_add_``.
+    ``index_add_`` (``scatter_events_into`` a new buffer)."""
+    return scatter_events_into(
+        torch.zeros(pad_total, dtype=torch.int32, device=device), events
+    )
+
+
+def scatter_events_into(buf: torch.Tensor, events) -> torch.Tensor:
+    """Add every (indices, value) event into the 1-D int32 ``buf`` in place,
+    in one ``index_add_``; returns ``buf``.  A value is a scalar or an array
+    of the indices' shape.
 
     The reference's scatter drops out-of-range indices silently; torch's
     raises (CPU) or asserts (CUDA), so the range is checked here on the host
-    and an index outside ``[0, pad_total)`` raises IndexError.  Checked
-    indices go to the device as int32 where ``pad_total`` allows it (half
-    the bytes of int64).  Integer adds commute, so the atomics' order on the
+    and an index outside ``[0, len(buf))`` raises IndexError.  Checked
+    indices go to the device as int32 where the length allows it (half the
+    bytes of int64).  Integer adds commute, so the atomics' order on the
     card cannot change the result.
     """
     idx = [np.asarray(i, np.int64) for i, _ in events]
@@ -64,18 +73,18 @@ def scatter_events(pad_total: int, device: torch.device, events) -> torch.Tensor
     ]
     idx = np.concatenate(idx) if idx else np.empty(0, np.int64)
     val = np.concatenate(val) if val else np.empty(0, np.int32)
-    w = torch.zeros(pad_total, dtype=torch.int32, device=device)
     if idx.shape[0] == 0:
-        return w
-    if int(idx.min()) < 0 or int(idx.max()) >= pad_total:
+        return buf
+    n = int(buf.shape[0])
+    if int(idx.min()) < 0 or int(idx.max()) >= n:
         raise IndexError(
-            f"event index outside [0, {pad_total}): "
-            f"[{int(idx.min())}, {int(idx.max())}]"
+            f"event index outside [0, {n}): [{int(idx.min())}, {int(idx.max())}]"
         )
-    if pad_total <= _INT32_MAX:
+    if n <= _INT32_MAX:
         idx = idx.astype(np.int32)
-    w.index_add_(0, torch.from_numpy(idx).to(device), torch.from_numpy(val).to(device))
-    return w
+    buf.index_add_(0, torch.from_numpy(idx).to(buf.device),
+                   torch.from_numpy(val).to(buf.device))
+    return buf
 
 
 def _local_prefix_sum(delta: torch.Tensor) -> torch.Tensor:

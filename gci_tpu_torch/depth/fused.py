@@ -33,6 +33,7 @@ from gci_tpu_torch.depth.device import (
     edge_indices_to_intervals,
     pack_read_deltas,
     scatter_events,
+    scatter_events_into,
 )
 from gci_tpu_torch.depth.scan import (
     fused_depth_scan_flags,
@@ -312,8 +313,13 @@ class DeviceDepth(ResidentDepth):
         issue_range: tuple[int, int] = (-1, 0),
     ) -> "DeviceDepth":
         """Like ``from_reads`` but on an already-accumulated int32 read delta
-        on the device (the reference's pack<->scatter overlap entry).
+        on the device (the pack<->scatter overlap entry,
+        ``overlap.DeltaAccumulator``).
 
+        The value takes ownership of ``delta``: on the packed path the event
+        word is built in it (``delta * 4`` plus the gap and scan-window
+        events, in place), so no second genome-sized array exists, and it
+        is freed once scanned if the caller holds no other reference.
         A read delta's depth is never negative and at most the sum of its
         positive entries; where that sum reaches ``PACKED_DEPTH_LIMIT`` the
         packed word could wrap, so the flags scan runs instead.
@@ -328,11 +334,14 @@ class DeviceDepth(ResidentDepth):
         gap_s, gap_e = gap_interval_events(layout, gaps)
         _check_disjoint(gap_s, gap_e)
         val_s, val_e = _valid_intervals(layout, flank_len)
-        word = scatter_events(pad_total, delta.device, [
+        scatter_events_into(delta.mul_(4), [
             (gap_s, 2), (gap_e, -2), (val_s, 1), (val_e, -1),
         ])
-        word += delta * 4
-        return cls._from_word(layout, word, gaps, flank_len, issue_range)
+        lo, hi = issue_range
+        raw, out_flags = fused_depth_scan_packed(delta, int(lo), int(hi))
+        del delta
+        return cls._from_packed_scan(layout, pad_total, raw, out_flags, gaps,
+                                     flank_len, lo, hi)
 
     @classmethod
     def _from_word(cls, layout, word, gaps, flank_len, issue_range):
@@ -340,6 +349,12 @@ class DeviceDepth(ResidentDepth):
         raw, out_flags = fused_depth_scan_packed(word, int(lo), int(hi))
         pad_total = word.shape[0]
         del word
+        return cls._from_packed_scan(layout, pad_total, raw, out_flags, gaps,
+                                     flank_len, lo, hi)
+
+    @classmethod
+    def _from_packed_scan(cls, layout, pad_total, raw, out_flags, gaps,
+                          flank_len, lo, hi):
         # the flag byte's bit3 is the gap mask, kept only when there are gaps
         has_gaps = gap_interval_events(layout, gaps)[0].shape[0] > 0
         return cls._from_kernel_outputs(

@@ -18,16 +18,18 @@ card.  This path scans the concatenated genome axis in chunks of
 
 Only chunk-local indices (below ``CHUNK_SLOTS`` <= 2^31 - 1) reach the card;
 host positions stay int64 throughout.  Device memory is O(chunk),
-independent of the genome's size.  Two consumers:
+independent of the genome's size.  Consumers:
 
 * ``accumulate_depth_streamed``: the flat per-slot host array (tests, and
   ``accum.accumulate_depth`` past its switch point);
 * ``events_from_reads_streamed``: run-length ``DepthEvents`` per target, the
   pipeline's ``streamed`` backend.  Each chunk's run boundaries (seeded with
   the carry, so a run across a chunk border makes no boundary) are
-  compacted on the card (the int8 form of the scan kernel and
-  ``searchsorted``) and read back with their values, so no per-base array
-  exists anywhere, on the host or the card.
+  compacted on the card (``chunk_runs``: the int8 form of the scan kernel
+  and ``searchsorted``) and read back with their values, so no per-base
+  array exists anywhere, on the host or the card;
+* ``overlap.SweepAccumulator``, which runs ``chunk_runs`` on each chunk
+  the coordinate sweep has passed.
 """
 from __future__ import annotations
 
@@ -146,28 +148,49 @@ def events_from_reads_streamed(
     would make an int64 copy of it, 8 B/slot), then ``searchsorted`` of the
     ranks and a value gather, read back in one transfer.
     """
-    all_idx: list[np.ndarray] = []
-    all_vals: list[np.ndarray] = []
-    for a, b, depth, carry in _iter_depth_chunks(
+    runs = []
+    for a, _, depth, carry in _iter_depth_chunks(
         layout, target_id, start, end, flank_len,
         CHUNK_SLOTS if chunk_slots is None else chunk_slots, device,
     ):
-        change = torch.empty(b - a, dtype=torch.bool, device=depth.device)
-        torch.ne(depth[1:], depth[:-1], out=change[1:])
-        change[:1] = depth[:1] != (carry if a > 0 else -1)
-        pos = depth_scan(change.view(torch.int8))
-        del change
-        n = int(pos[-1])
-        if n:
-            k = torch.arange(1, n + 1, dtype=torch.int32, device=pos.device)
-            idx = torch.searchsorted(pos, k)
-            got = torch.cat([idx, depth[idx].to(torch.int64)]).cpu().numpy()
-            all_idx.append(got[:n] + a)
-            all_vals.append(got[n:])
-        del depth, pos
+        runs.append(chunk_runs(depth, a, carry))
+        del depth
+    return events_from_runs(layout, runs)
 
-    idx = np.concatenate(all_idx)
-    vals = np.concatenate(all_vals)
+
+def chunk_runs(depth: torch.Tensor, a: int, carry: int):
+    """(global slots, depths) of the run boundaries of one chunk's depth,
+    both int64 on the host, each boundary with the depth of its run.
+
+    The chunk starts at global slot ``a``; ``carry`` is the depth at
+    ``a - 1``.  The boundary bitmap is seeded with the carry (``-1``
+    before the first chunk, which forces a boundary at slot 0), so a run
+    across a chunk border makes no boundary.  Its int32 prefix sum (the
+    int8 form of the scan kernel) gives the boundary count as its last
+    entry (one host sync; a ``sum`` of the bool bitmap would make an int64
+    copy of it, 8 B/slot), then ``searchsorted`` of the ranks and a value
+    gather are read back in one transfer.
+    """
+    change = torch.empty(depth.shape[0], dtype=torch.bool, device=depth.device)
+    torch.ne(depth[1:], depth[:-1], out=change[1:])
+    change[:1] = depth[:1] != (carry if a > 0 else -1)
+    pos = depth_scan(change.view(torch.int8))
+    del change
+    n = int(pos[-1])
+    if n == 0:
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+    k = torch.arange(1, n + 1, dtype=torch.int32, device=pos.device)
+    idx = torch.searchsorted(pos, k)
+    del pos
+    got = torch.cat([idx, depth[idx].to(torch.int64)]).cpu().numpy()
+    return got[:n] + a, got[n:]
+
+
+def events_from_runs(layout: GenomeLayout, runs):
+    """{target: DepthEvents} from the chunks' ``chunk_runs`` in genome order."""
+    runs = [r for r in runs if r[0].shape[0]]
+    idx = np.concatenate([r[0] for r in runs]) if runs else np.zeros(1, np.int64)
+    vals = np.concatenate([r[1] for r in runs]) if runs else np.zeros(1, np.int64)
 
     def gather(query: np.ndarray) -> np.ndarray:
         # the value of the run holding each queried slot (a target start
@@ -176,3 +199,4 @@ def events_from_reads_streamed(
         return vals[np.clip(pos, 0, None)]
 
     return events_from_change_indices(layout, idx, gather)
+

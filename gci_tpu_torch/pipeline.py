@@ -13,8 +13,14 @@ are the port's copies of ``gci_tpu``'s host code.  Depth backends:
 production, the CPU in tests; past ``accum.stream_slot_limit`` it takes the
 streamed path), ``streamed`` (chunked scans on the device, O(runs) event
 space on the host), ``events`` (O(reads) event space, host) and ``numpy``
-(host oracle).  The sharded backend, the multi-host input shards and the
-pack<->scatter overlap are not ported yet and raise.
+(host oracle).  The sharded backend and the multi-host input shards are
+not ported yet and raise.
+
+Every read type's depth comes from its curated reads, after the whole BAM
+is packed.  ``gci_tpu`` overlaps the pack of a one-BAM no-PAF read type
+with the device scatter; the port's copy of that overlap
+(``depth/overlap.py``) is not on this path, because on the H100 it was
+slower than this path in every case measured (PERF.md).
 """
 from __future__ import annotations
 
