@@ -72,10 +72,22 @@ Phases, each printing its results:
    sweep must finalize genome chunks during pack and stay below that
    peak.  Each prints, on and off, the pack and depth seconds, the
    last-wins fold's seconds, BAM chunks, rows retracted, chunks finalized
-   during pack, peak device memory and host RSS.
+   during pack, peak device memory and host RSS;
+9. the sharded backend (``depth/sharded.py``) on phase 5's MH63-shaped
+   inputs: (a) ``cli.main`` with ``--device sharded --mesh 1,1
+   --coordinator 127.0.0.1:<free port> --num-processes 1 --process-id 0``,
+   which starts an NCCL process group of one process and destroys it at
+   the end, with ``--profile-trace`` (a ``torch.profiler`` trace must be
+   written); (b) ``run_gci(depth_backend="sharded")`` on meshes of 4
+   positions, all on ``cuda:0``, shaped (2,2), (1,4) and (4,1).  Positions
+   on one card hold the programs and their launches per shard, not several
+   cards.  Each run's nine outputs must be identical to phase 5's events
+   run, K2 and its int8 form must launch exactly ``SHARDED_SCANS_PER_SHARD``
+   times per gp shard and no other kernel at all; each prints its wall,
+   stages, peak device memory and host RSS.
 
-Launch counts are set to 0 just before each path of phases 4 to 8 runs and
-read just after, and each path of phases 4 to 6 and 8 must have launched its
+Launch counts are set to 0 just before each path of phases 4 to 9 runs and
+read just after, and each path of phases 4 to 6, 8 and 9 must have launched its
 kernels (and not the scans of the other paths).  The script prints one JSON line with each
 kernel's launches on its path and on every path, error, times and bound,
 then as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -89,6 +101,7 @@ import json
 import os
 import resource
 import shutil
+import socket
 import struct
 import subprocess
 import sys
@@ -128,9 +141,11 @@ from gci_tpu_torch.depth.overlap import DeltaAccumulator, SweepAccumulator, feed
 from gci_tpu_torch.io.depth_file import read_depth_gz, read_depth_gz_events, write_depth_gz
 from gci_tpu_torch.io.fasta import scan_fasta
 from gci_tpu_torch.native import ensure_host_codec
-from gci_tpu_torch.pipeline import run_filter
+from gci_tpu_torch.parallel.distributed import init_multihost, shutdown_multihost
+from gci_tpu_torch.parallel.mesh import make_mesh
+from gci_tpu_torch.pipeline import run_filter, run_gci
 from gci_tpu_torch.tools import convert_depth, filter_bam, score_only
-from gci_tpu_torch.utils.metrics import get_metrics
+from gci_tpu_torch.utils.metrics import get_metrics, trace_path
 
 SEED = 63
 # MH63 rice: 12 chromosomes, 395,765,500 bp; the split between chromosomes
@@ -186,6 +201,13 @@ OVERLAP_CASES = {
 }
 # the stages of a run_filter call from the BAM to the depth on the host
 PACK_TO_DEPTH_STAGES = ("bam_pack", "curation", "depth_accumulate", "checkpoint_readback")
+# phase 9: launches of a dual-type sharded run with regions and N gaps, per
+# gp shard, counted from the code: K2 for the two read sets, their two gap
+# masks, the two-type mask and the three scan windows (one per issue BED);
+# its int8 form for the three checkpoints' run boundaries, the three host
+# views of the regions report and the two edge bitmaps of each issue BED
+SHARDED_SCANS_PER_SHARD = {"depth_scan": 8, "depth_scan_int8": 12}
+SHARDED_MESHES = ((2, 2), (1, 4), (4, 1))  # positions on cuda:0, phase 9b
 
 
 def outputs(prefix: str) -> list[str]:
@@ -1142,6 +1164,93 @@ def phase_overlap(inputs, dev) -> dict[str, dict[str, int]]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 9. the sharded backend
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_sharded(label: str, gp: int, out_dir: str, events_dir: str, call) -> dict[str, int]:
+    """``call()`` (a dual-type sharded run into ``out_dir``) with the launch
+    counts set to 0 just before it and read just after; the counts must be
+    ``SHARDED_SCANS_PER_SHARD`` times ``gp`` and nothing else, the nine
+    outputs the events run's."""
+    get_metrics().reset()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as rss:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: SHARDED_SCANS_PER_SHARD.get(name, 0) * gp for name in launches}
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    check_same_outputs(out_dir, events_dir, PREFIX, f"--device sharded ({label})")
+    log(f"{label}: run {wall:.3f} s; launches {launches} (as predicted: "
+        f"{SHARDED_SCANS_PER_SHARD} per gp shard x {gp}); all "
+        f"{len(outputs(PREFIX))} outputs identical to the events run")
+    log(f"{label}: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB; {before} bytes "
+        f"allocated before the run); host RSS {rss.start} bytes at its start, peak "
+        f"{rss.peak} bytes, {rss.peak - rss.start} bytes above the start")
+    log(f"{label}: stages " + json.dumps([r.as_dict() for r in get_metrics().records]))
+    return launches
+
+
+def phase_sharded(paths, work: str, dev: torch.device) -> dict[str, dict[str, int]]:
+    """9: the sharded backend through the CLI on an NCCL group of one process
+    (with a profiler trace), then through run_gci on meshes of 4 positions
+    on ``dev``.  Returns the launches of each run."""
+    import torch.distributed as dist
+
+    events_dir = os.path.join(work, "events")
+    # what 9a's wall holds besides the run: an NCCL group of one process
+    # started and destroyed alone
+    t0 = time.perf_counter()
+    init_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    t1 = time.perf_counter()
+    shutdown_multihost()
+    log(f"[sharded] an NCCL group of one process alone: start {t1 - t0:.3f} s, "
+        f"destroy {time.perf_counter() - t1:.3f} s")
+    launches = {}
+    out = os.path.join(work, "sharded_1x1")
+    trace = os.path.join(work, "sharded_trace")
+    argv = [
+        "-r", paths["ref"], "--hifi", paths["hifi"], "--nano", paths["ont"],
+        "-R", paths["regions"], "-d", out, "-o", PREFIX, "-t", "8", "-f", "--profile",
+        "--device", "sharded", "--mesh", "1,1", "--coordinator", f"127.0.0.1:{free_port()}",
+        "--num-processes", "1", "--process-id", "0", "--profile-trace", trace,
+    ]
+    launches["sharded_1x1"] = run_sharded(
+        "[sharded] 9a --mesh 1,1, NCCL group of 1 process, traced", 1, out, events_dir,
+        lambda: cli.main(argv))
+    check(not dist.is_initialized(), "the CLI left its process group behind")
+    trace_file = trace_path(trace, 0)
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    on_card = sum(1 for e in events if e.get("cat") == "kernel")
+    check(len(events) > 0, "the profiler trace holds no event")
+    log(f"[sharded] 9a: --profile-trace wrote {os.path.getsize(trace_file)} bytes, "
+        f"{len(events)} events, {on_card} of them CUDA kernels")
+    for dp, gp in SHARDED_MESHES:
+        out = os.path.join(work, f"sharded_{dp}x{gp}")
+        mesh = make_mesh(dp * gp, dp=dp, devices=[dev] * (dp * gp))
+        launches[f"sharded_{dp}x{gp}"] = run_sharded(
+            f"[sharded] 9b mesh ({dp},{gp}) on {dev}", gp, out, events_dir,
+            lambda: run_gci(
+                hifi=[paths["hifi"]], nano=[paths["ont"]], reference=paths["ref"],
+                regions=paths["regions"], directory=out, prefix=PREFIX, threads=8,
+                force=True, depth_backend="sharded", mesh=mesh, torch_device=dev))
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
@@ -1165,6 +1274,7 @@ def main() -> None:
             "t2t": (t2t_paths, T2T_PREFIX, os.path.join(work, "t2t_events"), t2t_lengths(),
                     work),
         }, dev))
+        launches.update(phase_sharded(paths, work, dev))
     check("jax" not in sys.modules and "gci_tpu" not in sys.modules,
           "jax or the JAX package was imported")
 

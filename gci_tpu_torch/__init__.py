@@ -10,11 +10,15 @@ reaches JAX is ported:
   kernels.py        nvcc build + ctypes binding of csrc/scan.cu, launch counts
   native/           ctypes binding of csrc/gci_native.cpp, the host codec
   depth/scan.py     the scan kernels' wrappers and plain versions
-  depth/device.py   host helpers of the device path, the device scatter
+  depth/device.py   host helpers of the device path, the device scatter,
+                    the sharded (dp, gp) programs
   depth/fused.py    ``DeviceDepth``: the single-GPU resident depth
   depth/streamed.py chunked scans for genomes past the resident path
-  pipeline.py, cli.py, io/, reports/, score/, utils/, parallel/
-                    single-process counterparts of the JAX package's seams
+  depth/sharded.py  ``ShardedDepth``: the genome axis over a (dp, gp) mesh
+  parallel/         the mesh of positions and the multi-process runtime
+                    (``torch.distributed``: NCCL on the GPU, gloo on the host)
+  pipeline.py, cli.py, io/, reports/, score/, utils/
+                    counterparts of the JAX package's seams
 
 ``import gci_tpu_torch`` needs neither CUDA nor nvcc: kernels build and load
 on their first launch with a CUDA tensor, the host codec on its first use.

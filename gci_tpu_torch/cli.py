@@ -1,14 +1,18 @@
 """Main CLI of the port (counterpart of ``gci_tpu.cli``).
 
 The flag surface, defaults, validation messages and argument echo are
-``gci_tpu.cli``'s own, copied.  What this slice does not run yet exits with a
-"not yet ported" message: the sharded backend, ``--mesh``, the multi-host
-flags and ``--profile-trace``.  ``--device auto`` (the default), ``device``
-and ``streamed`` run on the GPU and exit with an error where there is none;
-they never fall back to the CPU.  ``--device events`` and ``numpy`` run on
-the host.
+``gci_tpu.cli``'s own, copied.  ``--device auto`` (the default), ``device``,
+``streamed`` and ``sharded`` run on the GPU and exit with an error where
+there is none; they never fall back to the CPU.  ``--device events`` and
+``numpy`` run on the host.  ``--mesh dp,gp`` implies ``--device sharded``
+over this process's CUDA devices.  ``--coordinator HOST:PORT
+--num-processes N --process-id I`` make the run one of N processes
+(``torch.distributed`` over ``tcp://HOST:PORT``: NCCL for a run on the
+GPU, gloo on the host).
 
     python -m gci_tpu_torch.cli -r ref.fa --hifi x.bam [--nano y.bam] [--device streamed]
+    python -m gci_tpu_torch.cli -r ref.fa --hifi x.bam --mesh 1,4 \
+        [--coordinator host0:29500 --num-processes 2 --process-id 0]
 """
 from __future__ import annotations
 
@@ -17,15 +21,6 @@ import os
 import sys
 
 VERSION = "GCI-TPU version 0.1.0 (gci_tpu_torch)"
-
-# flags whose feature belongs to a later slice
-_NOT_PORTED_FLAGS = (
-    ("--mesh", "mesh"),
-    ("--coordinator", "coordinator"),
-    ("--num-processes", "num_processes"),
-    ("--process-id", "process_id"),
-    ("--profile-trace", "profile_trace"),
-)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -138,24 +133,25 @@ def build_parser() -> argparse.ArgumentParser:
         "(one GPU, fused scan kernel; streams a genome past int32 slots or "
         "the free device memory), streamed (chunked device scans, O(chunk) "
         "device memory), events (host, O(reads) event-space, identical "
-        "outputs), numpy (host oracle), or sharded (not yet ported) [auto]",
+        "outputs), numpy (host oracle), or sharded (genome axis sharded "
+        "over a (dp, gp) mesh of GPUs) [auto]",
     )
     group_tpu.add_argument(
         "--mesh", metavar="DP,GP", default=None,
-        help="Device mesh for the sharded backend as 'dp,gp' (not yet "
-        "ported) [None]",
+        help="Device mesh for the sharded backend as 'dp,gp' or 'auto' "
+        "(implies --device sharded) [None]",
     )
     group_tpu.add_argument(
         "--coordinator", metavar="HOST:PORT", default=None,
-        help="Multi-host runs: coordinator address (not yet ported) [None]",
+        help="Multi-host runs: coordinator address [None]",
     )
     group_tpu.add_argument(
         "--num-processes", metavar="INT", type=int, default=None,
-        help="Multi-host runs: total number of processes (not yet ported) [None]",
+        help="Multi-host runs: total number of processes [None]",
     )
     group_tpu.add_argument(
         "--process-id", metavar="INT", type=int, default=None,
-        help="Multi-host runs: this process's index (not yet ported) [None]",
+        help="Multi-host runs: this process's index [None]",
     )
     group_tpu.add_argument(
         "--profile", action="store_const", const=True, default=False,
@@ -163,7 +159,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     group_tpu.add_argument(
         "--profile-trace", metavar="DIR", default=None,
-        help="Write a profiler trace of the run to DIR (not yet ported)",
+        help="Write a torch.profiler trace of the run to DIR",
     )
 
     group_op = parser.add_argument_group("Other Options")
@@ -217,10 +213,6 @@ def validate_args(args: dict) -> None:
         )
 
 
-def _not_ported(what: str):
-    sys.exit(f"ERROR!!! {what} is not yet ported to gci_tpu_torch")
-
-
 def main(argv: list[str] | None = None) -> None:
     parser = build_parser()
     args = vars(parser.parse_args(argv))
@@ -228,26 +220,37 @@ def main(argv: list[str] | None = None) -> None:
         parser.print_help()
         sys.exit()
     validate_args(args)
-    for flag, key in _NOT_PORTED_FLAGS:
-        if args[key] is not None:
-            _not_ported(flag)
-    if args["depth_backend"] == "sharded":
-        _not_ported("--device sharded")
-    # gci_tpu.cli hands these three to its multi-host set-up, not to the echo
-    for key in ("coordinator", "num_processes", "process_id"):
-        del args[key]
+    if args["mesh"] is not None and args["depth_backend"] != "sharded":
+        args["depth_backend"] = "sharded"
 
-    from gci_tpu_torch.pipeline import resolve_backend, run_gci
+    from gci_tpu_torch import pipeline
+    from gci_tpu_torch.parallel.distributed import init_multihost, shutdown_multihost
 
     try:
-        backend, torch_device = resolve_backend(args["depth_backend"])
+        backend, torch_device = pipeline.resolve_backend(args["depth_backend"])
     except RuntimeError as exc:
         sys.exit(f"ERROR!!! --device {args['depth_backend']}: {exc}")
-    print(f"Used arguments:{args}")
-    args["depth_backend"] = backend
-    # echoed as gci_tpu.cli echoes them; None here, and not run_gci's
-    del args["mesh"], args["profile_trace"]
-    run_gci(**args, torch_device=torch_device)
+    # the three multi-host flags go to the process group, not to the echo
+    on_card = torch_device is not None and torch_device.type == "cuda"
+    init_multihost(
+        coordinator_address=args.pop("coordinator"),
+        num_processes=args.pop("num_processes"),
+        process_id=args.pop("process_id"),
+        backend="nccl" if on_card else "gloo",
+    )
+    try:
+        print(f"Used arguments:{args}")
+        args["depth_backend"] = backend
+        if backend == "sharded":
+            from gci_tpu_torch.depth.sharded import resolve_mesh
+
+            try:
+                args["mesh"] = resolve_mesh(args["mesh"], torch_device)
+            except ValueError as exc:
+                sys.exit(f"ERROR!!! --mesh {args['mesh']}: {exc}")
+        pipeline.run_gci(**args, torch_device=torch_device)
+    finally:
+        shutdown_multihost()
 
 
 if __name__ == "__main__":

@@ -10,8 +10,8 @@ from .accum import (
     depth_dict_from_flat,
 )
 
-# backends this port runs; the sharded one comes with the multi-GPU slice
-PORTED_BACKENDS = ("device", "streamed", "events", "numpy")
+# backends this port runs
+PORTED_BACKENDS = ("device", "streamed", "sharded", "events", "numpy")
 
 
 def resolve_auto_backend() -> str:

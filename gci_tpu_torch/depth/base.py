@@ -2,10 +2,10 @@
 
 ``ResidentDepth`` is the common base for device-resident depth values —
 ``gci_tpu_torch.depth.fused.DeviceDepth`` (one GPU, one fused scan kernel
-pass).  Pipeline dispatch sites (checkpoint writer, gap masker, issue-bed
-emitter, two-type merge, host views) test against this base, so a later
-multi-GPU value plugs in the same way.  The interface every subclass
-provides:
+pass) and ``gci_tpu_torch.depth.sharded.ShardedDepth`` (gp shards over a
+mesh).  Pipeline dispatch sites (checkpoint writer, gap masker, issue-bed
+emitter, two-type merge, host views) test against this base.  The
+interface every subclass provides:
 
 * ``mask_gaps(gaps) -> ResidentDepth``   — zero depth over N-gap intervals
 * ``maximum(other) -> ResidentDepth``    — per-base two-type max

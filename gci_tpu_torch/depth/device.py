@@ -1,10 +1,29 @@
-"""Host helpers of the single-GPU depth path, the device scatter and scans.
+"""Host helpers of the depth paths, the device scatter, scans and the
+sharded (dp, gp) programs.
 
 Counterpart of ``gci_tpu/depth/device.py``: the host numpy helpers
-``pack_read_deltas``, ``build_scan_valid`` and ``edge_indices_to_intervals``,
-the device scatter, and ``depth_and_edges_fused``, the single-GPU fused
-entry.  The rest of that module (the sharded mesh programs) belongs to the
-multi-GPU slice.
+``pack_read_deltas``, ``pack_read_deltas_sharded``, ``build_scan_valid``
+and ``edge_indices_to_intervals``, the device scatter,
+``depth_and_edges_fused`` (the single-GPU fused entry), and the programs of
+the sharded backend over a ``parallel.mesh.Mesh``.
+
+The sharded programs hold a genome of ``total_slots`` slots as gp equal
+shards, each a tensor on the device of its column's first position that
+this process owns (``{gp index: tensor}``; a process holds the columns of
+its own positions, one copy each).  The reference's collectives map so:
+
+* ``psum`` over dp: each position scatters its dp row's events into its
+  column's shard (positions on one device share the buffer), and processes
+  that hold the same column then ``all_reduce`` it in its dp group;
+* the prefix sum: ``depth_scan`` (the K2 kernel on CUDA) per shard, then
+  each shard adds the wrapped sum of the totals of the shards left of it,
+  from one host all-gather of the shard totals;
+* the ``ppermute`` of a shard's last element to its right neighbour: one
+  host all-gather of every shard's last element.
+
+Shard-local indices are int32 on the device; global positions are int64
+on the host only.  Rows are selected per shard on the host and scattered
+exactly, so no padding row or out-of-range sentinel exists.
 """
 from __future__ import annotations
 
@@ -13,6 +32,7 @@ import torch
 
 from gci_tpu_torch.depth.accum import GenomeLayout, clamp_read_intervals
 from gci_tpu_torch.depth.scan import depth_scan, fused_depth_scan
+from gci_tpu_torch.parallel import distributed
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -45,6 +65,33 @@ def pack_read_deltas(
         ge = np.concatenate([ge, np.zeros(padn, np.int32)])
         live = np.concatenate([live, np.zeros(padn, np.int32)])
     return gs, ge, live
+
+
+def pack_read_deltas_sharded(
+    layout: GenomeLayout,
+    target_id: np.ndarray,
+    start: np.ndarray,
+    end: np.ndarray,
+    flank_len: int,
+    shard_slots: int,
+) -> tuple[np.ndarray, ...]:
+    """(gs_shard, gs_off, ge_shard, ge_off, live), all int32.
+
+    Global slot arithmetic stays int64 on the host; each event is addressed
+    as (genome-shard index, shard-local offset), so a layout past 2^31
+    slots never touches an int32 global index.
+    """
+    s, e = clamp_read_intervals(layout, target_id, start, end, flank_len)
+    base = layout.offsets[target_id]
+    gs = base + s
+    ge = base + e
+    return (
+        (gs // shard_slots).astype(np.int32),
+        (gs % shard_slots).astype(np.int32),
+        (ge // shard_slots).astype(np.int32),
+        (ge % shard_slots).astype(np.int32),
+        (e > s).astype(np.int32),
+    )
 
 
 def scatter_events(pad_total: int, device: torch.device, events) -> torch.Tensor:
@@ -161,4 +208,152 @@ def edge_indices_to_intervals(
             f = f[: r.shape[0]]
         f = np.minimum(f, n_scan)
         out[name] = runs_to_intervals(r, f, n_scan, flank_len, start_pos)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sharded (dp, gp) programs
+# ---------------------------------------------------------------------------
+
+def _wrap_int32(x: int) -> int:
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def shard_values(mesh, values: dict[int, int]) -> list[int]:
+    """One integer per gp shard, on every process, from ``values`` of this
+    process's shards: the host all-gather that stands for the reference's
+    ``all_gather`` and ``ppermute`` over gp."""
+    rows = np.asarray(sorted(values.items()), dtype=np.int64).reshape(-1, 2)
+    if distributed.process_count() > 1:
+        (rows,) = distributed.allgather_concat([rows])
+    out: dict[int, int] = {}
+    for g, v in rows.tolist():
+        out.setdefault(g, v)
+    return [out[g] for g in range(mesh.shape["gp"])]
+
+
+def sharded_depth(mesh, total_slots: int, packed, n_rows: int,
+                  first_row: int = 0) -> dict[int, torch.Tensor]:
+    """The sharded depth step: {gp index: int32 inclusive prefix sum of the
+    events} for this process's shards of a ``total_slots`` genome axis.
+
+    ``packed`` holds ``pack_read_deltas_sharded``'s five arrays for rows
+    ``[first_row, first_row + len)`` of a table of ``n_rows`` rows, which
+    the dp rows split into runs of ``ceil(n_rows / dp)`` (the reference
+    pads the table to a multiple of dp).  Each position scatters the live
+    events of its dp row that fall in its gp shard; the partials are summed
+    over dp (in the shard's buffer, then across processes), the shard is
+    scanned by ``depth_scan`` and then carries the wrapped sum of the
+    totals of the shards left of it.
+    """
+    gp = mesh.shape["gp"]
+    if total_slots % gp:
+        raise ValueError("pad the genome axis to the gp shard count")
+    shard = total_slots // gp
+    chunk = -(-n_rows // mesh.shape["dp"])
+    gs_sh, gs_off, ge_sh, ge_off, live = packed
+    delta: dict[int, torch.Tensor] = {}
+    for g in mesh.local_gp():
+        dev = mesh.shard_device(g)
+        buf = torch.zeros(shard, dtype=torch.int32, device=dev)
+        for d, dev_d in mesh.local_positions(g):
+            rows = slice(max(d * chunk - first_row, 0), max((d + 1) * chunk - first_row, 0))
+            lv = live[rows]
+            a = (gs_sh[rows] == g) & (lv != 0)
+            b = (ge_sh[rows] == g) & (lv != 0)
+            events = [(gs_off[rows][a], lv[a]), (ge_off[rows][b], -lv[b])]
+            if dev_d == dev:
+                scatter_events_into(buf, events)
+            else:
+                buf += scatter_events(shard, dev_d, events).to(dev)
+        delta[g] = buf
+    for g in range(gp):  # every process in the same order
+        group = mesh.dp_group(g)
+        if group is not None:
+            torch.distributed.all_reduce(delta[g], group=group)
+    local = {g: depth_scan(delta.pop(g)) for g in list(delta)}
+    totals = shard_values(mesh, {g: int(x[-1]) for g, x in local.items()})
+    for g, x in local.items():
+        carry = _wrap_int32(sum(totals[:g]))
+        if carry:
+            x += carry
+    return local
+
+
+def sharded_interval_edges(mesh, depth: dict, valid: dict, leftmost: int,
+                           rightmost: int):
+    """Rise and fall bool bitmaps per shard of the in-range mask
+    ``leftmost < depth <= rightmost`` inside the bool ``valid``; a run that
+    crosses a shard border makes no edge there."""
+    m = {g: (x > leftmost) & (x <= rightmost) & valid[g] for g, x in depth.items()}
+    last = shard_values(mesh, {g: int(x[-1]) for g, x in m.items()})
+    rise, fall = {}, {}
+    for g, x in m.items():
+        prev = torch.empty_like(x)
+        prev[1:] = x[:-1]
+        prev[:1] = bool(last[g - 1]) if g else False
+        rise[g] = x & ~prev
+        fall[g] = ~x & prev
+    return rise, fall
+
+
+def sharded_change(mesh, depth: dict) -> dict[int, torch.Tensor]:
+    """Run-boundary bool bitmaps per shard: depth[i] != depth[i-1], across a
+    shard border against the left shard's last value; global slot 0 is
+    always a boundary."""
+    last = shard_values(mesh, {g: int(x[-1]) for g, x in depth.items()})
+    out = {}
+    for g, x in depth.items():
+        c = torch.empty(x.shape[0], dtype=torch.bool, device=x.device)
+        torch.ne(x[1:], x[:-1], out=c[1:])
+        c[:1] = (x[:1] != last[g - 1]) if g else True
+        out[g] = c
+    return out
+
+
+def sharded_compact_gather(mesh, bitmaps: dict, values: dict | None = None,
+                           offsets: dict | None = None):
+    """{gp index: (idx, vals, offset_vals)} for every shard, int64 host
+    arrays: the sorted shard-local indices of a bool bitmap's set entries,
+    and, given ``values``, the values there and at the shard-local
+    ``offsets[g]``.
+
+    Per shard of this process: the bitmap's prefix sum (the int8 form of
+    ``depth_scan``), whose last entry is the count (a ``sum`` of the bitmap
+    would make an int64 copy, 8 B/slot), ``searchsorted`` of the ranks and
+    the gathers, read back in one transfer; then one host all-gather across
+    processes.
+    """
+    out = {}
+    for g, bits in bitmaps.items():
+        pos = depth_scan(bits.view(torch.int8))
+        n = int(pos[-1])
+        idx = torch.searchsorted(pos, torch.arange(1, n + 1, dtype=torch.int32,
+                                                   device=pos.device))
+        del pos
+        parts = [idx]
+        k = 0
+        if values is not None:
+            off = torch.as_tensor(offsets[g], dtype=torch.int64, device=idx.device)
+            k = off.shape[0]
+            parts += [values[g][idx].to(torch.int64), values[g][off].to(torch.int64)]
+        got = torch.cat(parts).cpu().numpy()
+        nv = n if values is not None else 0
+        out[g] = (got[:n], got[n : n + nv], got[n + nv : n + nv + k])
+    if distributed.process_count() == 1:
+        return out
+    # self-delimiting records [g, n, k, idx, vals, offset_vals] of each
+    # process's shards, in process order; the first holder's copy is kept
+    flat = [np.concatenate([[g, len(i), len(o)], i, v, o]).astype(np.int64)
+            for g, (i, v, o) in out.items()]
+    (flat,) = distributed.allgather_concat(
+        [np.concatenate(flat) if flat else np.empty(0, np.int64)])
+    out, p = {}, 0
+    while p < flat.shape[0]:
+        g, n, k = (int(x) for x in flat[p : p + 3])
+        nv = n if values is not None else 0
+        p += 3
+        rec = (flat[p : p + n], flat[p + n : p + n + nv], flat[p + n + nv : p + n + nv + k])
+        out.setdefault(g, rec)
+        p += n + nv + k
     return out

@@ -4,9 +4,9 @@ Format: gzip-compressed text, one ``>target`` header line per target
 followed by one decimal depth per base per line (GCI.py:113-117 writer,
 utility/GCI_score.py:11-39 reader).  Copied from the JAX package: the
 readers (``decode_depth_text``, ``read_depth_gz``, ``read_depth_gz_events``,
-``iter_depth_targets``) whole, and of the writer the single-writer branch of
-``write_depth_gz`` with the run-length and text helpers it needs, so the
-bytes are the reference writer's.
+``iter_depth_targets``) whole, and the writer ``write_depth_gz`` with
+its multi-process form and the run-length and text helpers it needs, so
+the bytes are the reference writer's.
 """
 from __future__ import annotations
 
@@ -17,7 +17,12 @@ import numpy as np
 
 from gci_tpu_torch.depth.base import ResidentDepth
 from gci_tpu_torch.depth.eventspace import DepthEvents
-from gci_tpu_torch.parallel.distributed import is_primary_host
+from gci_tpu_torch.parallel.distributed import (
+    allgather_concat,
+    is_primary_host,
+    process_count,
+    process_index,
+)
 
 _NL = 10
 _GT = 62
@@ -261,16 +266,66 @@ def _target_runs(vals) -> tuple[np.ndarray, np.ndarray]:
     return a[bounds], counts
 
 
+def _bgzf_ranges(depths: dict, compresslevel: int) -> list[np.ndarray]:
+    """This process's disjoint BGZF block range of every target, encoded.
+
+    The runs->BGZF encoder frames blocks at fixed uncompressed byte offsets,
+    so the processes' ranges concatenate to exactly the single writer's
+    bytes: the reference's per-chunk gzip fan-out plus ``cat``
+    (GCI.py:99-143), spread over processes.  Raises ImportError or OSError
+    without the native encoder.
+    """
+    from gci_tpu_torch.native import (
+        depth_runs_bgzf_nblocks_native,
+        depth_runs_to_bgzf_range_native,
+    )
+
+    h, H = process_index(), process_count()
+    nthreads = os.cpu_count() or 1
+    local: list[np.ndarray] = []
+    for target, vals in depths.items():
+        values, counts = _target_runs(vals)
+        header = b">" + target.encode() + b"\n"
+        nblocks = depth_runs_bgzf_nblocks_native(values, counts, len(header))
+        lo = nblocks * h // H
+        hi = nblocks * (h + 1) // H if h < H - 1 else nblocks
+        blob = depth_runs_to_bgzf_range_native(
+            values, counts, header, lo, hi, compresslevel, nthreads
+        )
+        local.append(np.frombuffer(blob, dtype=np.uint8))
+    return local
+
+
 def write_depth_gz(path: str, depths: dict, compresslevel: int = 1) -> None:
     """Write the .depth.gz checkpoint (content-identical to GCI.py:113-117).
 
     Values may be per-base arrays, event-space ``DepthEvents`` or a
     device-resident depth (read back as run boundaries only, O(runs)).
     BGZF-framed through the native runs->BGZF encoder when it loads, one
-    gzip member of the same text otherwise.
+    gzip member of the same text otherwise.  On a multi-process run every
+    process takes part in the readback, and, with the native encoder, the
+    processes compress disjoint block ranges that the primary concatenates
+    into the single writer's bytes.
     """
     if isinstance(depths, ResidentDepth):
         depths = depths.to_events()
+    if process_count() > 1:
+        try:
+            local = _bgzf_ranges(depths, compresslevel)
+        except (ImportError, OSError):
+            local = None  # no native codec: the single writer below
+        if local is not None:
+            # one gather per target: blob lengths differ per target, and
+            # allgather_concat sizes its padding off a single shared row count
+            gathered = [allgather_concat([arr])[0] for arr in local]
+            if is_primary_host():
+                from gci_tpu_torch.native import bgzf_eof_native
+
+                with open(path, "wb") as f:
+                    for blob in gathered:
+                        f.write(blob.tobytes())
+                    f.write(bgzf_eof_native())
+            return
     if not is_primary_host():
         return
     try:

@@ -7,14 +7,19 @@
                  scan, per-type filter, gap masking, two-type merge, issue
                  BEDs, scoring, optional plots).
 
-Single process, single device.  Ingestion, filtering, curation and scoring
-are the port's copies of ``gci_tpu``'s host code.  Depth backends:
-``device`` (``DeviceDepth`` resident on a torch device: the GPU in
-production, the CPU in tests; past ``accum.stream_slot_limit`` it takes the
-streamed path), ``streamed`` (chunked scans on the device, O(runs) event
-space on the host), ``events`` (O(reads) event space, host) and ``numpy``
-(host oracle).  The sharded backend and the multi-host input shards are
-not ported yet and raise.
+Ingestion, filtering, curation and scoring are the port's copies of
+``gci_tpu``'s host code.  Depth backends: ``device`` (``DeviceDepth``
+resident on a torch device: the GPU in production, the CPU in tests; past
+``accum.stream_slot_limit`` it takes the streamed path), ``streamed``
+(chunked scans on the device, O(runs) event space on the host),
+``sharded`` (``ShardedDepth`` on a (dp, gp) mesh of positions), ``events``
+(O(reads) event space, host) and ``numpy`` (host oracle).
+
+On a multi-process run (``parallel.distributed.init_multihost``) every
+process runs the whole pipeline: each parses only its byte range of every
+shared BAM and its line range of every PAF, the packed survivors are
+reconciled by a host all-gather before curation, and only process 0
+writes files.
 
 Every read type's depth comes from its curated reads, after the whole BAM
 is packed.  ``gci_tpu`` overlaps the pack of a one-BAM no-PAF read type
@@ -53,11 +58,18 @@ from gci_tpu_torch.filters.cascade import high_qual_keys
 from gci_tpu_torch.io.fasta import mask_gaps_in_depths, scan_fasta
 from gci_tpu_torch.io.paf import read_paf
 from gci_tpu_torch.io.depth_file import write_depth_gz
-from gci_tpu_torch.parallel.distributed import is_primary_host
+from gci_tpu_torch.io.names import keys_view
+from gci_tpu_torch.parallel.distributed import (
+    allgather_concat,
+    input_comp_range,
+    is_primary_host,
+    process_count,
+    process_index,
+)
 from gci_tpu_torch.reports import emit_gaps_bed, emit_issue_bed
 from gci_tpu_torch.score.report import compute_continuity_report
 from gci_tpu_torch.utils.files import require_writable
-from gci_tpu_torch.utils.metrics import get_metrics, stage
+from gci_tpu_torch.utils.metrics import get_metrics, maybe_trace, stage
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -66,13 +78,13 @@ def _not_ported(what: str) -> NotImplementedError:
 
 def resolve_backend(depth_backend: str, torch_device=None):
     """(backend, torch.device or None) for a run; ``auto`` is ``device``.
-    The device and streamed backends default to CUDA and raise when there
-    is none."""
+    The device, streamed and sharded backends default to CUDA and raise
+    when there is none."""
     if depth_backend == "auto":
         depth_backend = resolve_auto_backend()
     if depth_backend not in PORTED_BACKENDS:
         raise _not_ported(f"the {depth_backend!r} depth backend")
-    if depth_backend not in ("device", "streamed"):
+    if depth_backend not in ("device", "streamed", "sharded"):
         return depth_backend, None
     return depth_backend, resolve_device("cuda" if torch_device is None else torch_device)
 
@@ -97,6 +109,7 @@ def run_filter(
     gaps=None,
     threshold: int = 0,
     slot_limit: int | None = None,
+    mesh=None,
 ):
     """Filter alignments of one read type into depth (GCI.py:172-312).
 
@@ -104,7 +117,8 @@ def run_filter(
     can pre-extract the run's issue edges; other backends ignore them (gap
     masking stays a separate pipeline stage, as in the reference).  The
     device backend streams a genome of more than ``slot_limit`` slots
-    (default: ``accum.stream_slot_limit`` of its device).
+    (default: ``accum.stream_slot_limit`` of its device).  ``mesh`` (a
+    ``Mesh`` or a spec) is the sharded backend's.
     """
     require_writable(f"{directory}/{prefix}.depth.gz", force)
     print(f"Filtering {log_reads_type} alignment files ...")
@@ -112,10 +126,16 @@ def run_filter(
 
     from gci_tpu_torch.io.bam import BamStream
 
+    # multi-process: each process inflates and parses only its compressed
+    # byte range of every shared BAM; the packed survivors are reconciled
+    # below by a host all-gather
+    multihost = process_count() > 1
+
     chunk_bytes = int(os.environ.get("GCI_BAM_CHUNK_BYTES", 64 << 20))
 
     def open_stream(path: str) -> BamStream:
         return BamStream(path, threads=threads, keep_names=False,
+                         comp_range=input_comp_range(path) if multihost else None,
                          chunk_bytes=chunk_bytes)
 
     # only the first stream opens up-front (it provides the target table);
@@ -140,7 +160,10 @@ def run_filter(
     hq_parts: list[np.ndarray] = []
     curation_inputs: list[CurationInput] = []
 
-    # --- PAF branch (GCI.py:213-254): cumulative election across files
+    # --- PAF branch (GCI.py:213-254): cumulative election across files.
+    # Multi-process: each process tokenizes only its line range of every
+    # shared PAF, and the masked candidate columns reconcile by all-gather
+    # in process order, which is file row order
     if paf_files:
         from gci_tpu_torch.io.paf import PafData
 
@@ -148,7 +171,8 @@ def run_filter(
         paf_masked = []
         for path in paf_files:
             with stage(f"{log_reads_type}:paf_parse:{path}") as paf_stage:
-                paf = read_paf(path, threads=threads)
+                shard = (process_index(), process_count()) if multihost else None
+                paf = read_paf(path, threads=threads, shard=shard)
                 paf_stage.items = paf.n_records
                 paf_stage.unit = "rows"
                 # map this file's target table onto the pipeline's; unknown
@@ -162,20 +186,26 @@ def run_filter(
                     paf.mapq, paf.nmatch, paf.alnlen, map_qual, iden_percent
                 )
                 idx = np.flatnonzero(mask)
-                keys = np.ascontiguousarray(paf.name_keys[idx])
+                cols = [
+                    np.ascontiguousarray(paf.name_keys[idx]),
+                    gtid[idx].astype(np.int32),
+                    paf.qlen[idx], paf.qstart[idx], paf.qend[idx],
+                    paf.tstart[idx], paf.tend[idx],
+                    paf.nmatch[idx], paf.alnlen[idx], paf.mapq[idx],
+                ]
+                if multihost:
+                    cols = allgather_concat(cols)
+                keys, gtid_m, qlen, qs, qe, ts, te, nmatch, alnlen, mapq = cols
                 cand = PafData(
-                    _names=None, name_keys=keys, tid=gtid[idx].astype(np.int32),
+                    _names=None, name_keys=keys, tid=gtid_m,
                     target_names=global_target_names,
-                    qlen=paf.qlen[idx], qstart=paf.qstart[idx],
-                    qend=paf.qend[idx], tstart=paf.tstart[idx],
-                    tend=paf.tend[idx], nmatch=paf.nmatch[idx],
-                    alnlen=paf.alnlen[idx], mapq=paf.mapq[idx],
+                    qlen=qlen, qstart=qs, qend=qe, tstart=ts, tend=te,
+                    nmatch=nmatch, alnlen=alnlen, mapq=mapq,
                 )
                 paf_masked.append((cand, np.ones(keys.shape[0], dtype=bool)))
                 hq_parts.append(
                     high_qual_keys(
-                        keys, np.ones(keys.shape[0], dtype=bool),
-                        paf.mapq[idx], mq_cutoff,
+                        keys, np.ones(keys.shape[0], dtype=bool), mapq, mq_cutoff,
                     )
                 )
         with stage(f"{log_reads_type}:paf_election"):
@@ -243,9 +273,19 @@ def run_filter(
             tid = np.empty(0, dtype=np.int32)
             start = end = qlen = np.empty(0, dtype=np.int64)
         nonempty_hq = [p for p in hq_file_parts if p.size]
-        hq_parts.append(
-            np.unique(np.concatenate(nonempty_hq)) if nonempty_hq else empty_hq
-        )
+        hq_file = np.unique(np.concatenate(nonempty_hq)) if nonempty_hq else empty_hq
+        if multihost:
+            # reconcile the process shards: process order is file order, so
+            # the gathered concatenation is the whole file's record order
+            # and the last-wins dedup below stays exact (GCI.py:166)
+            keys, tid, start, end, qlen = allgather_concat(
+                [keys, tid, start, end, qlen]
+            )
+            (hq_gathered,) = allgather_concat(
+                [np.ascontiguousarray(hq_file).view(np.uint64).reshape(-1, 2)]
+            )
+            hq_file = np.unique(keys_view(hq_gathered)) if hq_gathered.size else empty_hq
+        hq_parts.append(hq_file)
         survivors = dedup_last_wins(keys, np.ones(keys.shape[0], dtype=bool))
         curation_inputs.append(
             CurationInput(
@@ -289,6 +329,16 @@ def run_filter(
                 layout, curated.target_id, curated.start, curated.end,
                 flank_len, gaps=gaps, issue_range=(-1, threshold),
                 device=torch_device,
+            )
+        elif depth_backend == "sharded":
+            # genome axis gp-sharded on the mesh, reads scattered over dp;
+            # the depth stays on the devices through gap masking, two-type
+            # max and interval extraction
+            from gci_tpu_torch.depth.sharded import ShardedDepth, resolve_mesh
+
+            depths = ShardedDepth.from_reads(
+                resolve_mesh(mesh, torch_device), layout, curated.target_id,
+                curated.start, curated.end, flank_len,
             )
         else:
             flat = accumulate_depth(
@@ -359,23 +409,34 @@ def run_gci(
     depth_backend: str = "auto",
     torch_device: str | torch.device | None = None,
     profile: bool = False,
+    mesh=None,
+    profile_trace: str | None = None,
 ) -> None:
     """Whole run with the semantics of the reference's ``GCI()`` (GCI.py:897-1028).
 
-    ``torch_device`` is where the ``device`` and ``streamed`` backends run
-    (default: the current CUDA device; ``"cpu"`` runs the kernels' plain
-    versions).
+    ``torch_device`` is where the ``device``, ``streamed`` and ``sharded``
+    backends run (default: the current CUDA device; ``"cpu"`` runs the
+    kernels' plain versions).  ``mesh`` is the sharded backend's: a
+    ``parallel.mesh.Mesh`` or a spec (``"dp,gp"``, ``"auto"``; see
+    ``depth.sharded.resolve_mesh``); one mesh serves the whole run.
+    ``profile_trace`` is a directory for a ``torch.profiler`` trace.
     """
     from gci_tpu_torch.native import ensure_host_codec
 
     depth_backend, torch_device = resolve_backend(depth_backend, torch_device)
+    if depth_backend == "sharded":
+        from gci_tpu_torch.depth.sharded import resolve_mesh
+
+        mesh = resolve_mesh(mesh, torch_device)
     ensure_host_codec()
-    _run_gci_inner(
-        hifi, nano, directory, prefix, map_qual, mq_cutoff, iden_percent,
-        ovlp_percent, clip_percent, flank_len, threshold, plot, depth_min,
-        depth_max, window_size, image_type, force, dist_percent, reference,
-        regions, chrs, threads, depth_backend, torch_device,
-    )
+    with maybe_trace(profile_trace, cuda=torch_device is not None
+                     and torch_device.type == "cuda"):
+        _run_gci_inner(
+            hifi, nano, directory, prefix, map_qual, mq_cutoff, iden_percent,
+            ovlp_percent, clip_percent, flank_len, threshold, plot, depth_min,
+            depth_max, window_size, image_type, force, dist_percent, reference,
+            regions, chrs, threads, depth_backend, torch_device, mesh,
+        )
     if profile:
         print("\n=== stage metrics ===")
         print(get_metrics().report())
@@ -391,7 +452,7 @@ def _run_gci_inner(
     hifi, nano, directory, prefix, map_qual, mq_cutoff, iden_percent,
     ovlp_percent, clip_percent, flank_len, threshold, plot, depth_min,
     depth_max, window_size, image_type, force, dist_percent, reference,
-    regions, chrs, threads, depth_backend, torch_device,
+    regions, chrs, threads, depth_backend, torch_device, mesh=None,
 ) -> None:
     from gci_tpu_torch.io.bam import read_bam_header
     from gci_tpu_torch.io.bed import read_bed_dict
@@ -413,7 +474,7 @@ def _run_gci_inner(
         if not os.access(directory, os.W_OK):
             sys.exit(f'ERROR!!! The path "{directory}" is unable to write')
     else:
-        os.makedirs(directory, exist_ok=True)
+        os.makedirs(directory, exist_ok=True)  # multi-process: processes race here
 
     if prefix.endswith("/"):
         sys.exit(f'ERROR!!! The prefix "{prefix}" is not allowed')
@@ -499,6 +560,7 @@ def _run_gci_inner(
         threads=threads,
         depth_backend=depth_backend,
         torch_device=torch_device,
+        mesh=mesh,
         gaps=gaps,
         threshold=threshold,
         # one switch point for the whole run, so both read types take the
@@ -573,13 +635,17 @@ def _run_gci_inner(
             depths_for_report, threshold, chrs_list,
         )
         host_plot_depths = [hifi_depths, nano_depths]
-    if plot and is_primary_host():
+    if plot:
         from gci_tpu_torch.viz.plot import plot_depth_files
 
-        plot_depth_files(
-            [_host_view(d) for d in host_plot_depths], depth_min, depth_max,
-            window_size, image_type, directory, prefix, force, targets_length,
-            dist_percent, regions_bed, threshold,
-        )
+        # host views first: a sharded readback is a collective every
+        # process joins; only the primary renders files
+        host_depths = [_host_view(d) for d in host_plot_depths]
+        if is_primary_host():
+            plot_depth_files(
+                host_depths, depth_min, depth_max, window_size, image_type,
+                directory, prefix, force, targets_length, dist_percent,
+                regions_bed, threshold,
+            )
 
     print("GCI finished!!!\nBye!!!")

@@ -1,8 +1,9 @@
 """Continuity report (counterpart of ``gci_tpu.score.report``).
 
-``compute_continuity_report`` for a single-process run and the region
-sub-report, copied from the JAX package, so ``.gci`` and ``.regions.gci``
-are the reference writer's bytes (GCI.py:522-657).
+``compute_continuity_report`` and the region sub-report, copied from the
+JAX package, so ``.gci`` and ``.regions.gci`` are the reference writer's
+bytes (GCI.py:522-657); on a multi-process run every process checks the
+paths (the primary's decision is broadcast) and only process 0 writes.
 """
 from __future__ import annotations
 

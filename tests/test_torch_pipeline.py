@@ -139,10 +139,18 @@ def test_existing_output_needs_force(inputs, tmp_path):
 
 
 @pytest.mark.parametrize("backend", ["sharded"])
-def test_unported_backends_raise(inputs, tmp_path, backend):
+def test_unported_backends_raise(inputs, tmp_path, monkeypatch, backend):
+    """A backend the port does not have raises; the sharded one, ported
+    since, runs on the card and raises without one instead of running on
+    the CPU."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         run_gci(hifi=[inputs["hifi"]], reference=inputs["ref"],
+                directory=str(tmp_path), depth_backend="tpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        run_gci(hifi=[inputs["hifi"]], reference=inputs["ref"],
                 directory=str(tmp_path), depth_backend=backend)
+    assert os.listdir(tmp_path) == []
 
 
 def _spy_streamed(monkeypatch):
@@ -233,14 +241,44 @@ def test_cli_gpu_backends_without_cuda_exit(inputs, tmp_path, monkeypatch, backe
 
 @pytest.mark.parametrize("flags", [
     ["--device", "sharded"], ["--mesh", "1,1"],
-    ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
-    ["--process-id", "0"], ["--profile-trace", "trace_dir"],
+    ["--coordinator", "127.0.0.1:{port}", "--num-processes", "1", "--process-id", "0"],
+    ["--num-processes", "1"], ["--process-id", "0"], ["--profile-trace", "trace_dir"],
 ])
-def test_cli_unported_flags_exit(inputs, tmp_path, flags):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["-r", inputs["ref"], "--hifi", inputs["hifi"],
-                  "-d", str(tmp_path / "out"), *flags])
-    assert "not yet ported" in str(exc.value.code)
+def test_cli_unported_flags_exit(inputs, tmp_path, capsys, monkeypatch, flags):
+    """The flags that exited as "not yet ported" before the multi-GPU slice
+    now run: the sharded backend (put on the CPU here, where it otherwise
+    exits for want of a card), the multi-host flags (a one-process gloo
+    group, or none), and the profiler trace; each run writes the events
+    run's files and echoes the multi-host flags as gci_tpu.cli does (not at
+    all)."""
+    import socket
+
+    from gci_tpu_torch import pipeline
+    from gci_tpu_torch.parallel.distributed import process_count
+    from gci_tpu_torch.utils.metrics import trace_path
+
+    real = pipeline.resolve_backend
+    monkeypatch.setattr(pipeline, "resolve_backend",
+                        lambda backend, dev=None: real(backend, "cpu"))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    flags = [f.format(port=port) for f in flags]
+    flags = [str(tmp_path / f) if f == "trace_dir" else f for f in flags]
+    d_ev, d_got = str(tmp_path / "ev"), str(tmp_path / "got")
+    base = ["-r", inputs["ref"], "--hifi", inputs["hifi"], "-o", "U"]
+    if "--device" not in flags and "--mesh" not in flags:
+        base += ["--device", "events"]
+    cli.main([*base, "-d", d_got, *flags])
+    echo = [l for l in capsys.readouterr().out.splitlines() if l.startswith("Used arguments:")]
+    assert len(echo) == 1 and "not yet ported" not in echo[0]
+    assert "process" not in echo[0] and "coordinator" not in echo[0]
+    assert process_count() == 1  # the group, if any, is gone
+    run_gci(hifi=[inputs["hifi"]], reference=inputs["ref"], directory=d_ev, prefix="U",
+            depth_backend="events")
+    _diff_outputs(d_ev, d_got, ["U.depth.gz", "U.0.depth.bed", "U.gci", "U.gaps.bed"])
+    if "--profile-trace" in flags:
+        assert os.path.getsize(trace_path(flags[-1], 0)) > 0
 
 
 def test_cli_events_matches_jax(inputs, tmp_path, capsys):
@@ -308,6 +346,8 @@ def test_auto_backend(inputs, tmp_path, monkeypatch):
     monkeypatch.setenv("GCI_AUTO_BACKEND", "streamed")
     assert resolve_auto_backend() == "streamed"
     monkeypatch.setenv("GCI_AUTO_BACKEND", "sharded")
+    assert resolve_auto_backend() == "sharded"
+    monkeypatch.setenv("GCI_AUTO_BACKEND", "tpu")
     with pytest.raises(ValueError):
         resolve_auto_backend()
 
