@@ -15,9 +15,13 @@ Phases, each printing its results:
    full-range bytes), each also launched 20 times on one input, every
    result exact (a look-back ordering fault shows only sometimes); the
    three unpacked-stream kernels against each other and against the packed
-   one; the on-device compaction as built (the int8 depth_scan of the
-   bitmap + searchsorted) beside torch.nonzero; and a small DeviceDepth, on
-   the packed and on the flags path, against the numpy depth oracle;
+   one; the stream compaction in both its forms (flag form: K1's flag byte
+   under one and three masks, the change bits as a bool bitmap, dense
+   random bytes; run form: K1's depth without, with an equal and with a
+   different carry, an offset slice, dense random depths), exact against
+   the plain versions and on 20 back-to-back launches, timed beside
+   torch.nonzero; and a small DeviceDepth, on the packed and on the flags
+   path, against the numpy depth oracle;
 4. the public entries of the two kernels no CLI path runs:
    ``depth.device.depth_and_edges_fused`` (fused_depth_scan) and
    ``depth.scan.fused_depth_scan_masked``, at MH63 size, each checked
@@ -28,7 +32,8 @@ Phases, each printing its results:
    ``gci_tpu_torch.depth.fused.PACKED_DEPTH_LIMIT`` set to 1 in this process
    (the flags path every read count at or above 2^29 takes), and with
    ``--device events``; both device runs' nine outputs must be identical to
-   the events run's;
+   the events run's, and each one's peak device memory at most
+   ``accum.RESIDENT_BYTES_PER_SLOT`` per genome slot;
 6. the streamed path (``depth/streamed.py``): (a) the same MH63-shaped
    inputs with ``--device streamed`` and
    ``gci_tpu_torch.depth.streamed.CHUNK_SLOTS`` lowered so that 4 chunks run
@@ -63,8 +68,8 @@ Phases, each printing its results:
    type, K3 not), (b) the same with ``PACKED_DEPTH_LIMIT`` 1 (its flags
    branch: K3 once per type, K1 not), (c) the same inputs into the
    coordinate sweep over phase 6a's 4 chunks and (d) phase 6b's 3.1 Gbp
-   inputs into the sweep over its 12 chunks (K2 and K2 int8 once per
-   chunk and type in both).  The BAMs are read in chunks of 128 KiB (at
+   inputs into the sweep over its 12 chunks (K2 and the run form of the
+   compaction once per chunk and type in both).  The BAMs are read in chunks of 128 KiB (at
    least 20 per BAM, checked) and, in (a) and (d), again at run_filter's
    default 64 MiB.  Every checkpoint, on and off, must equal the events
    run's of phase 5 or 6b; the peak device memory must be at most the
@@ -82,13 +87,16 @@ Phases, each printing its results:
    positions, all on ``cuda:0``, shaped (2,2), (1,4) and (4,1).  Positions
    on one card hold the programs and their launches per shard, not several
    cards.  Each run's nine outputs must be identical to phase 5's events
-   run, K2 and its int8 form must launch exactly ``SHARDED_SCANS_PER_SHARD``
-   times per gp shard and no other kernel at all; each prints its wall,
+   run, K2 and the two forms of the compaction must launch exactly
+   ``SHARDED_SCANS_PER_SHARD`` times per gp shard and no other kernel at
+   all; each prints its wall,
    stages, peak device memory and host RSS.
 
 Launch counts are set to 0 just before each path of phases 4 to 9 runs and
-read just after, and each path of phases 4 to 6, 8 and 9 must have launched its
-kernels (and not the scans of the other paths).  The script prints one JSON line with each
+read just after, and each path of phases 4 to 6, 8 and 9 must have launched
+exactly the kernels counted from its code (``PATH_LAUNCHES``,
+``check_streamed_launches``, ``OVERLAP_CASES``, ``SHARDED_SCANS_PER_SHARD``):
+K2's int8 form none on any path.  The script prints one JSON line with each
 kernel's launches on its path and on every path, error, times and bound,
 then as its last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and exits nonzero; so does a machine without CUDA.  Inputs are
@@ -121,8 +129,12 @@ from gci_tpu_torch.depth.device import (
     pack_read_deltas,
     scatter_events,
 )
-from gci_tpu_torch.depth.fused import DeviceDepth, _compact, flags_for, packed_event_word
+from gci_tpu_torch.depth.fused import DeviceDepth, flags_for, packed_event_word
 from gci_tpu_torch.depth.scan import (
+    compact_flags,
+    compact_flags_torch,
+    compact_runs,
+    compact_runs_torch,
     depth_scan,
     depth_scan_torch,
     fused_depth_scan,
@@ -155,7 +167,8 @@ CHROM_WEIGHTS = [43.3, 35.9, 36.4, 35.5, 29.9, 31.2, 29.7, 28.4, 23.0, 23.2, 31.
 N_HIFI, HIFI_MEAN, HIFI_SD = 200_000, 18_000, 4_000
 N_ONT, ONT_MEAN, ONT_SD = 100_000, 25_000, 10_000
 TIMED_RUNS = 5
-REPEATED_LAUNCHES = 20  # of each depth_scan form on one input
+REPEATED_LAUNCHES = 20  # of each depth_scan and compaction form on one input
+DENSE_SLOTS = 10_000_019  # the compaction's dense cases: no tile multiple
 PREFIX = "MH63"
 # phase 6a: 4 chunks of the MH63-shaped genome, borders away from chromosome
 # starts
@@ -172,7 +185,9 @@ T2T_SIZES_MBP = [
     66.21, 45.09, 51.32, 154.26, 62.46,
 ]
 T2T_READS = 160_000  # per read type
-RESIDENT_MH63_PEAK = 9_897_666_048  # bytes, the resident path's peak at MH63 size
+# bytes, the resident path's peak at MH63 size when its compaction was the
+# int8 scan and searchsorted: the overlap's and the streamed path's ceiling
+RESIDENT_MH63_PEAK = 9_897_666_048
 CONVERT_BP = 2_000_000  # phase 7d: lines of samtools-depth text per chromosome
 # phase 8: BAM chunks of 128 KiB inflated, so that each BAM arrives in at
 # least 20 (at run_filter's default 64 MiB the MH63 HiFi BAM is one)
@@ -187,11 +202,11 @@ OVERLAP_CASES = {
     "overlap_packed": dict(
         label="8a MH63 resident delta", inputs="mh63", acc="delta", backend="device",
         bam_chunk_bytes=(OVERLAP_BAM_CHUNK_BYTES, DEFAULT_BAM_CHUNK_BYTES),
-        exact={"fused_depth_scan_packed": 2, "fused_depth_scan_flags": 0}),
+        exact={"fused_depth_scan_packed": 2, "compact_flags": 2}),
     "overlap_flags": dict(
         label="8b MH63 resident delta, PACKED_DEPTH_LIMIT 1", inputs="mh63", acc="delta",
         backend="device", limit=1, bam_chunk_bytes=(OVERLAP_BAM_CHUNK_BYTES,),
-        exact={"fused_depth_scan_flags": 2, "fused_depth_scan_packed": 0}),
+        exact={"fused_depth_scan_flags": 2, "depth_scan": 4, "compact_flags": 2}),
     "overlap_sweep_mh63": dict(
         label="8c MH63 sweep", inputs="mh63", acc="sweep", backend="streamed",
         chunk=MH63_STREAM_CHUNK, bam_chunk_bytes=(OVERLAP_BAM_CHUNK_BYTES,)),
@@ -204,9 +219,10 @@ PACK_TO_DEPTH_STAGES = ("bam_pack", "curation", "depth_accumulate", "checkpoint_
 # phase 9: launches of a dual-type sharded run with regions and N gaps, per
 # gp shard, counted from the code: K2 for the two read sets, their two gap
 # masks, the two-type mask and the three scan windows (one per issue BED);
-# its int8 form for the three checkpoints' run boundaries, the three host
-# views of the regions report and the two edge bitmaps of each issue BED
-SHARDED_SCANS_PER_SHARD = {"depth_scan": 8, "depth_scan_int8": 12}
+# the run form of the compaction for the three checkpoints' run boundaries
+# and the three host views of the regions report; its flag form for the
+# edge byte of each issue BED
+SHARDED_SCANS_PER_SHARD = {"depth_scan": 8, "compact_runs": 6, "compact_flags": 3}
 SHARDED_MESHES = ((2, 2), (1, 4), (4, 1))  # positions on cuda:0, phase 9b
 
 
@@ -225,7 +241,9 @@ KERNEL_ROWS = {
     # wrapper name -> (the TPU kernel it replaces, the path whose launches
     # count, bytes per slot: each input read once and each output written
     # once, integer operations per slot the function needs, the one PyTorch
-    # call that computes the same function or None)
+    # call that computes the same function or None).  Where the work depends
+    # on the data, bytes and operations are functions of the timed inputs
+    # and the plain version's outputs on them, and give totals.
     "fused_depth_scan_packed": ("gci_tpu/depth/pallas_scan.py:605", "packed", 9, 18, None),
     "depth_scan": ("gci_tpu/depth/pallas_scan.py:208", "streamed_3g", 8, 1,
                    lambda x: torch.cumsum(x, 0, dtype=torch.int32)),
@@ -234,20 +252,34 @@ KERNEL_ROWS = {
     "fused_depth_scan_flags": ("gci_tpu/depth/pallas_scan.py:467", "flags", 10, 16, None),
     "fused_depth_scan": ("gci_tpu/depth/pallas_scan.py:252", "entries", 11, 10, None),
     "fused_depth_scan_masked": ("gci_tpu/depth/pallas_scan.py:336", "entries", 13, 16, None),
+    # the compaction gci_tpu builds on depth_scan + searchsorted: 1 B/slot
+    # in, 8 B per index out; one test per slot and mask
+    "compact_flags": ("gci_tpu/depth/fused.py:158", "packed",
+                      lambda args, outs: args[0].shape[0] + 8 * sum(o.shape[0] for o in outs),
+                      lambda args, outs: args[0].shape[0] * len(args[1]),
+                      lambda x: torch.nonzero(x)),
+    # 4 B/slot in, 8 B per index and 4 per depth out; one compare per slot
+    "compact_runs": ("gci_tpu/depth/fused.py:106", "packed",
+                     lambda args, outs: 4 * args[0].shape[0] + 12 * outs[0].shape[0],
+                     lambda args, outs: args[0].shape[0],
+                     lambda x: torch.unique_consecutive(x, return_counts=True)),
 }
 # the card's peaks at 700 W (NVIDIA's H100 SXM data sheet): memory bytes/s,
 # and float32 operations/s outside the tensor cores, the rate each integer
 # operation is counted at
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-# the kernels each CLI path must launch, and the scans it must not
-PATH_KERNELS = {
-    "packed": (("fused_depth_scan_packed", "depth_scan", "depth_scan_int8"),
-               ("fused_depth_scan_flags",)),
-    "flags": (("fused_depth_scan_flags", "depth_scan", "depth_scan_int8"),
-              ("fused_depth_scan_packed",)),
-    "streamed": (("depth_scan", "depth_scan_int8"),
-                 ("fused_depth_scan_packed", "fused_depth_scan_flags")),
+# the launches of each resident CLI path (dual type, regions, N gaps),
+# counted from the code: per read type K1 or K3 and one three-mask flag
+# compaction of its flag byte (flags path: K2 twice more for its flag
+# bytes); the scan windows of the two-type issue BED (K2 twice) and its
+# edge byte (one flag compaction); the run form for the two-type checkpoint
+# and the three host views of the regions report.  Every other count is 0.
+PATH_LAUNCHES = {
+    "packed": {"fused_depth_scan_packed": 2, "depth_scan": 2, "compact_flags": 3,
+               "compact_runs": 4},
+    "flags": {"fused_depth_scan_flags": 2, "depth_scan": 6, "compact_flags": 3,
+              "compact_runs": 4},
 }
 WIDE = (-(2**30), 2**30)  # an issue range holding about half of random depths
 
@@ -278,6 +310,8 @@ def median_ms(fn, runs: int = TIMED_RUNS) -> float:
 
 
 def max_abs_err(got, want) -> int:
+    if got.numel() == 0:
+        return 0
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
 
 
@@ -304,28 +338,41 @@ def hold(name: str, kernel, plain, cases, timed) -> dict:
     _, _, bytes_per_slot, ops_per_slot, library = KERNEL_ROWS[name]
     library_ms = None if library is None else median_ms(lambda: library(timed[0]))
     n = timed[0].shape[0]
+    if callable(bytes_per_slot):
+        outs = plain(*timed)
+        n_bytes, n_ops = bytes_per_slot(timed, outs), ops_per_slot(timed, outs)
+        del outs
+    else:
+        n_bytes, n_ops = n * bytes_per_slot, n * ops_per_slot
     bound_ms, bound_by = max(
-        (n * bytes_per_slot / PEAK_BYTES_PER_S * 1e3, "bytes"),
-        (n * ops_per_slot / PEAK_OPS_PER_S * 1e3, "operations"),
+        (n_bytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+        (n_ops / PEAK_OPS_PER_S * 1e3, "operations"),
     )
     log(f"[kernels] {name} exact on {len(cases)} inputs, {ms:.4f} ms vs plain "
         f"{plain_ms:.4f} ms, library {library_ms} ms; bound {bound_ms:.4f} ms "
-        f"({bound_by}, {bytes_per_slot} B/slot at {n} slots), "
+        f"({bound_by}, {n_bytes / n:.4f} B/slot at {n} slots), "
         f"{100 * bound_ms / ms:.1f}% of it")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
 
-def hold_repeats(name: str, x: torch.Tensor) -> None:
-    """REPEATED_LAUNCHES launches of depth_scan on x, back to back, then
+def _equal(got, want) -> bool:
+    if isinstance(got, torch.Tensor):
+        return torch.equal(got, want)
+    return all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
+
+
+def hold_repeats(name: str, x: torch.Tensor, kernel=depth_scan, plain=depth_scan_torch,
+                 *args) -> None:
+    """REPEATED_LAUNCHES launches of the kernel on x, back to back, then
     every result against the plain one."""
-    want = depth_scan_torch(x)
+    want = plain(x, *args)
     before = kernels.LAUNCHES[name]
-    got = [depth_scan(x) for _ in range(REPEATED_LAUNCHES)]
+    got = [kernel(x, *args) for _ in range(REPEATED_LAUNCHES)]
     torch.cuda.synchronize()
     check(kernels.LAUNCHES[name] == before + REPEATED_LAUNCHES,
           f"{name} repeated launches not counted")
-    bad = [k for k, g in enumerate(got) if not torch.equal(g, want)]
+    bad = [k for k, g in enumerate(got) if not _equal(g, want)]
     check(not bad, f"{name} != plain on repeated launches {bad}")
     log(f"[kernels] {name} exact on all {REPEATED_LAUNCHES} back-to-back launches "
         f"on one input")
@@ -503,18 +550,9 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
         [(word, -1, 0), (word, -1, 1)], (word, -1, 0),
     )
 
-    # compaction as built (int8 depth_scan + searchsorted) vs torch.nonzero
     k1_depth, k1_flags = fused_depth_scan_packed(word, -1, 0)
     del word
-    bits = (k1_flags & 4) != 0
-    count = int(bits.sum())
-    check(torch.equal(_compact(bits, count), torch.nonzero(bits).squeeze(1)),
-          "compaction != torch.nonzero")
-    c_ms = median_ms(lambda: _compact(bits, count))
-    nz_ms = median_ms(lambda: torch.nonzero(bits).squeeze(1))
-    log(f"[kernels] compaction of {count} change bits: int8 depth_scan+searchsorted "
-        f"{c_ms:.4f} ms, torch.nonzero {nz_ms:.4f} ms")
-    del bits
+    rows.update(phase_compaction(dev, k1_depth, k1_flags))
 
     # K2's int32 form on +-2^23 deltas (wraps mod 2^32) and on a 0/1 bitmap;
     # its int8 form on a bool bitmap viewed as int8 and on bytes in
@@ -583,6 +621,73 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
     del delta, flags, gap, valid, d3, o3, d4, r4, f4, r0, f0
     phase_small_oracle(dev)
     torch.cuda.empty_cache()
+    return rows
+
+
+def phase_compaction(dev: torch.device, depth: torch.Tensor, flags: torch.Tensor):
+    """Both forms of the stream compaction against their plain versions on
+    K1's outputs at MH63 size and on dense random inputs, on repeated
+    launches, and beside torch.nonzero."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 7)
+    rows = {}
+    change = (flags & 4) != 0  # K1's change bits (forced at slot 0)
+    bits = change.view(torch.int8)
+    # about half of random bytes have bit 7 set; 0x7F leaves 0 and -128 clear
+    dense = torch.randint(-128, 128, (DENSE_SLOTS,), dtype=torch.int32, device=dev,
+                          generator=g).to(torch.int8)
+    ones = torch.ones(DENSE_SLOTS, dtype=torch.int8, device=dev)
+    rows["compact_flags"] = hold(
+        "compact_flags", compact_flags, compact_flags_torch,
+        [(flags, (1, 2, 4)), (bits, (1,)), (flags, (8, 3)), (dense, (0x80, 0x7F, 0xFF)),
+         (dense[4096:], (0x40,)), (dense[:1], (1, 2)), (ones, (1,)), (ones, (2,))],
+        (bits, (1,)),
+    )
+    hold_repeats("compact_flags", flags, compact_flags, compact_flags_torch, (1, 2, 4))
+    three_ms = median_ms(lambda: compact_flags(flags, (1, 2, 4)))
+    three_plain_ms = median_ms(lambda: compact_flags_torch(flags, (1, 2, 4)))
+    masked = [(flags & m) != 0 for m in (1, 2, 4)]
+    three_nz_ms = median_ms(lambda: [torch.nonzero(b) for b in masked])
+    counts = [int(b.sum()) for b in masked]
+    # dense bytes: every tile past the slots its scratch keeps, so read twice
+    dense_ms = median_ms(lambda: compact_flags(dense, (0x80,)))
+    dense_nz = dense.view(torch.uint8) >= 0x80
+    dense_nz_ms = median_ms(lambda: torch.nonzero(dense_nz))
+    log(f"[kernels] compact_flags of {DENSE_SLOTS} random bytes under mask 0x80 "
+        f"({int(dense_nz.sum())} set): {dense_ms:.4f} ms, torch.nonzero {dense_nz_ms:.4f} ms")
+    del masked, dense, ones, dense_nz
+    log(f"[kernels] compact_flags of K1's flag byte under masks (1, 2, 4), "
+        f"{counts} set: {three_ms:.4f} ms vs plain {three_plain_ms:.4f} ms; "
+        f"torch.nonzero of the three precomputed bitmaps {three_nz_ms:.4f} ms")
+    rows["compact_flags"]["three_masks"] = dict(ms=three_ms, plain_ms=three_plain_ms,
+                                                nonzero_ms=three_nz_ms, counts=counts)
+
+    runs = torch.randint(0, 3, (DENSE_SLOTS,), dtype=torch.int32, device=dev, generator=g)
+    d0 = int(depth[0])
+    rows["compact_runs"] = hold(
+        "compact_runs", compact_runs, compact_runs_torch,
+        [(depth, None), (depth, d0), (depth, d0 + 1), (depth[4096:], int(depth[4095])),
+         (runs, None), (runs, 1), (runs[:1], 5), (torch.full_like(runs, 7), 7)],
+        (depth, None),
+    )
+    hold_repeats("compact_runs", depth, compact_runs, compact_runs_torch, None)
+    dense_ms = median_ms(lambda: compact_runs(runs))
+    dense_nz_ms = median_ms(lambda: torch.nonzero(runs[1:] != runs[:-1]))
+    log(f"[kernels] compact_runs of {DENSE_SLOTS} random depths in 0..2: {dense_ms:.4f} "
+        f"ms, torch.nonzero(depth[1:] != depth[:-1]) {dense_nz_ms:.4f} ms")
+    check(torch.equal(compact_runs(depth)[0], compact_flags(flags, (4,))[0]),
+          "the run form of K1's depth != the flag form of its change bits")
+    nz_ms = median_ms(lambda: torch.nonzero(change))
+    # torch.nonzero from the depth itself: the bitmap's build counts too
+    nz_depth_ms = median_ms(lambda: torch.nonzero(depth[1:] != depth[:-1]))
+    log(f"[kernels] compact_runs of K1's depth: {rows['compact_runs']['ms']:.4f} ms, "
+        f"compact_flags of its change bits: {rows['compact_flags']['ms']:.4f} ms; "
+        f"torch.nonzero of the change bits {nz_ms:.4f} ms, of depth[1:] != depth[:-1] "
+        f"{nz_depth_ms:.4f} ms")
+    rows["compact_runs"]["nonzero_ms"] = nz_ms
+    rows["compact_runs"]["nonzero_of_depth_ms"] = nz_depth_ms
+    rows["compact_flags"]["nonzero_ms"] = rows["compact_flags"]["library_ms"]
+    del change, bits, runs
     return rows
 
 
@@ -700,9 +805,9 @@ def run_cli(paths, out_dir: str, backend: str, prefix: str = PREFIX) -> tuple[fl
 def run_device_path(paths, out_dir: str, backend: str, path: str, label: str,
                     prefix: str = PREFIX):
     """One ``--device backend`` CLI run with the launch counts set to 0 just
-    before it and read just after; the path's kernels must have launched
-    and the other paths' scans not.  Returns (launches, peak device bytes)."""
-    required, absent = PATH_KERNELS[path]
+    before it and read just after; a resident path's counts must be its
+    ``PATH_LAUNCHES`` (the streamed path's are checked by the caller).
+    Returns (launches, peak device bytes)."""
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -710,10 +815,9 @@ def run_device_path(paths, out_dir: str, backend: str, path: str, label: str,
     wall, stages = run_cli(paths, out_dir, backend, prefix)
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    for name in required:
-        check(launches[name] > 0, f"{name} was not launched on the {path} path")
-    for name in absent:
-        check(launches[name] == 0, f"{name} was launched on the {path} path")
+    if path in PATH_LAUNCHES:
+        want = {name: PATH_LAUNCHES[path].get(name, 0) for name in launches}
+        check(launches == want, f"{label}: launches {launches}, expected {want}")
     log(f"{label}: --device {backend} run {wall:.3f} s; launches {launches}")
     log(f"{label}: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB; "
         f"{before} bytes allocated before the run)")
@@ -724,16 +828,23 @@ def run_device_path(paths, out_dir: str, backend: str, path: str, label: str,
 def phase_main_path(paths, work: str):
     """Returns the launches of each path and the packed path's peak."""
     dirs = {k: os.path.join(work, k) for k in ("packed", "flags", "events")}
-    launches = {}
-    launches["packed"], packed_peak = run_device_path(
+    launches, peaks = {}, {}
+    launches["packed"], peaks["packed"] = run_device_path(
         paths, dirs["packed"], "device", "packed", "[main] packed path")
     limit = fused.PACKED_DEPTH_LIMIT
     fused.PACKED_DEPTH_LIMIT = 1  # every read count takes the flags path
     try:
-        launches["flags"], _ = run_device_path(
+        launches["flags"], peaks["flags"] = run_device_path(
             paths, dirs["flags"], "device", "flags", "[main] flags path")
     finally:
         fused.PACKED_DEPTH_LIMIT = limit
+    # the switch point assumes the resident peak per slot
+    slots = GenomeLayout.from_targets(chrom_lengths()).total_slots
+    for path, peak in peaks.items():
+        log(f"[main] {path} path: peak {peak / slots:.4f} B/slot at {slots} slots "
+            f"(accum.RESIDENT_BYTES_PER_SLOT {accum.RESIDENT_BYTES_PER_SLOT})")
+        check(peak <= accum.RESIDENT_BYTES_PER_SLOT * slots,
+              f"the {path} path's peak {peak} bytes exceeds RESIDENT_BYTES_PER_SLOT")
     wall_ev, stages_ev = run_cli(paths, dirs["events"], "events")
     for path in ("packed", "flags"):
         check_same_outputs(dirs[path], dirs["events"], PREFIX,
@@ -741,7 +852,7 @@ def phase_main_path(paths, work: str):
     log(f"[main] events run {wall_ev:.3f} s; all {len(outputs(PREFIX))} outputs of "
         "both device paths identical to it")
     log("[main] stages events " + json.dumps(stages_ev))
-    return launches, packed_peak
+    return launches, peaks["packed"]
 
 
 # ---------------------------------------------------------------------------
@@ -804,10 +915,10 @@ class RssPeak:
 
 def check_streamed_launches(launches, n_chunks: int, label: str) -> None:
     """Two read types, each chunk of each: one int32 scan (its depth) and
-    one int8 scan (its boundary bitmap's prefix)."""
-    for name in ("depth_scan", "depth_scan_int8"):
-        check(launches[name] == 2 * n_chunks,
-              f"{label}: {name} launched {launches[name]} times, expected {2 * n_chunks}")
+    one run-form compaction (its run boundaries); nothing else."""
+    want = {name: 0 for name in launches}
+    want.update(depth_scan=2 * n_chunks, compact_runs=2 * n_chunks)
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
 
 
 def phase_streamed_mh63(paths, work: str) -> dict[str, int]:
@@ -863,6 +974,8 @@ def phase_streamed_t2t(work: str, packed_peak: int) -> tuple[dict[str, int], dic
     check_streamed_launches(launches, n_chunks, "T2T --device device")
     check(peak < packed_peak and peak < RESIDENT_MH63_PEAK,
           f"T2T streamed peak {peak} bytes is not below the resident path's")
+    log(f"[streamed] T2T: peak {peak / streamed.CHUNK_SLOTS:.4f} B/slot of a "
+        f"{streamed.CHUNK_SLOTS}-slot chunk")
     log(f"[streamed] T2T: host RSS during the device run: {rss.start} bytes at its "
         f"start, peak {rss.peak} bytes ({rss.peak / 2**30:.3f} GiB, sampled every "
         f"10 ms), {rss.peak - rss.start} bytes above the start; process peak so far "
@@ -1152,14 +1265,9 @@ def phase_overlap(inputs, dev) -> dict[str, dict[str, int]]:
                 continue
             if case["acc"] == "sweep":
                 check_streamed_launches(counts, n_chunks, label)
-                absent = ("fused_depth_scan_packed", "fused_depth_scan_flags")
-                check(not any(counts[k] for k in absent),
-                      f"{label}: a resident scan was launched")
             else:
-                check(counts["depth_scan_int8"] > 0,
-                      f"{label}: the boundary readback launched no int8 scan")
-            for k, n in case.get("exact", {}).items():
-                check(counts[k] == n, f"{label}: {k} launched {counts[k]} times, expected {n}")
+                want = {name: case["exact"].get(name, 0) for name in counts}
+                check(counts == want, f"{label}: launches {counts}, expected {want}")
             launches[key] = counts
     return launches
 

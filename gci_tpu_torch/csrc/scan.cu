@@ -1,8 +1,8 @@
 // Hopper (sm_90a) kernels of the single-GPU depth path.
 //
-// Every kernel here is an inclusive int32 prefix sum over the concatenated
-// genome axis, wrapping mod 2^32, plus an epilogue.  Two skeletons carry
-// them.
+// Every kernel here but the stream compaction (at the end of the kernels)
+// is an inclusive int32 prefix sum over the concatenated genome axis,
+// wrapping mod 2^32, plus an epilogue.  Two skeletons carry them.
 //
 // depth_scan (the plain prefix sum) is a single-pass scan with decoupled
 // look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan with
@@ -25,12 +25,12 @@
 // sees a state without its value and L1 never serves a stale word.
 //
 // depth_scan replaces gci_tpu/depth/pallas_scan.py:depth_scan (the prefix sum
-// behind every on-device compaction and the flag-byte build).  It is bound by
-// device-memory bytes: 8 B per slot for an int32 input (4 in, 4 out) and 5 B
-// for the int8 form (1 in, sign-extended, 4 out), against 12 B for the two
-// passes of the other kernels below.  The int8 form lets a compaction scan a
-// bool bitmap as it lies, with no int32 copy of it.  What the design does
-// about the bytes:
+// behind the flag-byte build and the streamed and sharded depth).  It is
+// bound by device-memory bytes: 8 B per slot for an int32 input (4 in, 4 out)
+// and 5 B for the int8 form (1 in, sign-extended, 4 out), against 12 B for
+// the two passes of the other kernels below.  The int8 form scans a bool
+// bitmap as it lies; the compaction kernels below took its place on every
+// path.  What the design does about the bytes:
 //
 //   * warp-striped tiles: lane l holds slots 4l..4l+3 of each 128-slot
 //     column of its warp, so every load and store of a warp is one
@@ -674,6 +674,472 @@ edges_scan_tiles_kernel(const int32_t* __restrict__ delta,
   store_bytes(fall, first, n, f);
 }
 
+// ---------------------------------------------------------------------------
+// stream compaction
+// ---------------------------------------------------------------------------
+//
+// compact_flags and compact_runs replace the compaction gci_tpu builds on
+// depth_scan + searchsorted (gci_tpu/depth/fused.py _compact_fn,
+// _compact_pack_fn and _flag_compact_pack_fn, gci_tpu/depth/device.py
+// make_sharded_compact_gather_fn): the ascending indices of the slots where
+// a predicate holds, with their exact count, for up to three predicates in
+// one call.  Two forms, each a template instance of the same kernels:
+//
+//   * flag form: one int8 stream x and up to three bit masks m; the
+//     predicate is (x & m) != 0;
+//   * run form: one int32 depth; the predicate is depth[i] != depth[i-1],
+//     slot 0 compared against a carry, or forced when there is none.  It
+//     writes each run's depth beside its index.
+//
+// Bound by device-memory bytes: 1 B/slot in for the flag form, 4 for the
+// run form, plus 8 B (index) or 12 B (index and depth) per set slot out.
+// The outputs are exactly sized, so their size must be known before they
+// are written, and the caller learns it in one host sync:
+//
+//   1. compact_count_kernel  one block per tile ranks each predicate's set
+//                            slots and writes the tile's count; when the
+//                            tile holds at most kCache of them, it keeps
+//                            their tile-local offsets (and, run form, their
+//                            depths) in the tile's own scratch;
+//   2. compact_carry_kernel  one block per predicate scans the tile counts
+//                            into exclusive offsets, in place, and writes
+//                            the total after them; the host reads the
+//                            totals and allocates the outputs;
+//   3. compact_write_kernel  one block per tile copies its kept entries to
+//                            its offset; a tile that held more than kCache
+//                            set slots re-reads its input and ranks again.
+//
+// So the input is read once where set slots are sparser than one in
+// kTileSlots / kCache (1/128 for both forms; MH63's depth has one run
+// boundary per ~1,000 slots, a 58x human one about one per 170), and twice
+// in the tiles past that.  Scratch is per tile only: a 64-bit count and
+// kCache 16-bit offsets (run form: and kCache depths) per tile and
+// predicate, about 0.05 B per slot; no per-slot buffer, no prefix.
+//
+// Each warp owns kCompactCols consecutive columns of its tile, and lane l
+// loads the 16 bytes at 16 l of each column, so a warp access is one
+// contiguous 512-byte block.  A lane's slots become one bit each (the flag
+// form tests four bytes per word at once).  A set slot's rank in its warp is
+// the popcount of its lane's bits below it plus the set slots of the lanes
+// before it, which a bit-sliced ballot gives: bit b of the lanes' counts is
+// one __ballot_sync, of which the lanes before lane l hold
+// popc(ballot & lanemask_lt) << b.  Across the warps of a tile, a
+// shared-memory scan of the warp totals.  Each column's set slots are staged
+// in shared memory at their ranks and then written by consecutive lanes, so
+// a dense column's indices leave as contiguous stores, not one lane's run
+// after another.
+
+constexpr int kCompactThreads = 256;
+constexpr int kCompactWarps = kCompactThreads / 32;
+constexpr int kCompactCols = 8;
+
+// Bits 0-3: whether byte k of (w & mrep) is nonzero, for the four bytes of w.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w, uint32_t mrep) {
+  const uint32_t t = w & mrep;
+  // bit 7 of each byte: its low seven bits nonzero (no carry leaves a
+  // byte: 0x7F + 0x7F < 0x100), or its own bit 7
+  const uint32_t hi = (((t & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | t) & 0x80808080u;
+  // bits 0, 8, 16, 24 gathered into bits 28-31
+  return ((hi >> 7) * 0x10204080u) >> 28;
+}
+
+// Flag form over NS masks (byte s of `masks` is stream s's mask, 1-255).
+template <int NS>
+struct FlagForm {
+  static constexpr int kStreams = NS;
+  static constexpr int kLaneSlots = 16;  // one 16-byte load per column
+  static constexpr int kCountBits = 5;   // a lane's count is 0..16
+  static constexpr int kColSlots = 32 * kLaneSlots;
+  static constexpr int kWarpSlots = kCompactCols * kColSlots;
+  static constexpr int kTileSlots = kCompactWarps * kWarpSlots;
+  static constexpr int kCache = 256;
+  static constexpr bool kValues = false;
+  struct Vals {};
+
+  const int8_t* x;
+  uint32_t masks;
+
+  // bits[c][s]: bit j is slot warp_first + kColSlots * c + 16 * lane + j
+  // under mask s; slots at or past n are clear.
+  __device__ __forceinline__ void load(int64_t warp_first, int64_t n,
+                                       uint32_t (&bits)[kCompactCols][NS],
+                                       Vals&) const {
+    const int lane = threadIdx.x & 31;
+    uint4 w[kCompactCols];
+    if (warp_first + kWarpSlots <= n) {
+#pragma unroll
+      for (int c = 0; c < kCompactCols; ++c) {
+        w[c] = __ldg(reinterpret_cast<const uint4*>(x + warp_first + kColSlots * c + 16 * lane));
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < kCompactCols; ++c) {
+        const int64_t first = warp_first + kColSlots * c + 16 * lane;
+        uint32_t b[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          if (first + j < n) {
+            b[j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(x[first + j]))
+                         << (8 * (j & 3));
+          }
+        }
+        w[c] = make_uint4(b[0], b[1], b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const uint32_t mrep = ((masks >> (8 * s)) & 0xFFu) * 0x01010101u;
+#pragma unroll
+      for (int c = 0; c < kCompactCols; ++c) {
+        bits[c][s] = nonzero_bytes(w[c].x, mrep) | (nonzero_bytes(w[c].y, mrep) << 4) |
+                     (nonzero_bytes(w[c].z, mrep) << 8) | (nonzero_bytes(w[c].w, mrep) << 12);
+      }
+    }
+  }
+
+  __device__ __forceinline__ static int32_t value(const Vals&, int, int) { return 0; }
+};
+
+// Run form: the run boundaries of an int32 depth.
+struct RunForm {
+  static constexpr int kStreams = 1;
+  static constexpr int kLaneSlots = 4;  // one 16-byte load per column
+  static constexpr int kCountBits = 3;  // a lane's count is 0..4
+  static constexpr int kColSlots = 32 * kLaneSlots;
+  static constexpr int kWarpSlots = kCompactCols * kColSlots;
+  static constexpr int kTileSlots = kCompactWarps * kWarpSlots;
+  static constexpr int kCache = 64;
+  static constexpr bool kValues = true;
+  struct Vals {
+    uint32_t v[kCompactCols][4];
+  };
+
+  const int32_t* depth;
+  int32_t carry;  // the depth before slot 0, when has_carry
+  int has_carry;
+
+  __device__ __forceinline__ void load(int64_t warp_first, int64_t n,
+                                       uint32_t (&bits)[kCompactCols][1],
+                                       Vals& vals) const {
+    const int lane = threadIdx.x & 31;
+    auto& v = vals.v;
+    if (warp_first + kWarpSlots <= n) {
+#pragma unroll
+      for (int c = 0; c < kCompactCols; ++c) {
+        const int4 q =
+            __ldg(reinterpret_cast<const int4*>(depth + warp_first + kColSlots * c + 4 * lane));
+        v[c][0] = q.x; v[c][1] = q.y; v[c][2] = q.z; v[c][3] = q.w;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < kCompactCols; ++c) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int64_t i = warp_first + kColSlots * c + 4 * lane + k;
+          v[c][k] = i < n ? static_cast<uint32_t>(depth[i]) : 0u;
+        }
+      }
+    }
+    // the depth just before the warp's first slot
+    uint32_t prev_col_last = 0u;
+    bool forced = false;
+    if (warp_first > 0) {
+      if (warp_first <= n) prev_col_last = static_cast<uint32_t>(depth[warp_first - 1]);
+    } else if (has_carry) {
+      prev_col_last = static_cast<uint32_t>(carry);
+    } else {
+      forced = true;
+    }
+#pragma unroll
+    for (int c = 0; c < kCompactCols; ++c) {
+      const uint32_t up = __shfl_up_sync(kFull, v[c][3], 1);
+      uint32_t prev = lane == 0 ? prev_col_last : up;
+      uint32_t b = 0u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        b |= static_cast<uint32_t>(v[c][k] != prev) << k;
+        prev = v[c][k];
+      }
+      prev_col_last = __shfl_sync(kFull, v[c][3], 31);
+      const int64_t first = warp_first + kColSlots * c + 4 * lane;
+      if (first + 4 > n) b &= first >= n ? 0u : (1u << (n - first)) - 1u;
+      bits[c][0] = b;
+    }
+    if (forced && lane == 0) bits[0][0] |= 1u;
+  }
+
+  // slot j of the lane's column c, by selects (a runtime index into the
+  // register array would put it in local memory)
+  __device__ __forceinline__ static int32_t value(const Vals& vals, int c, int j) {
+    const uint32_t* v = vals.v[c];
+    return static_cast<int32_t>(j == 0 ? v[0] : j == 1 ? v[1] : j == 2 ? v[2] : v[3]);
+  }
+};
+
+// The per-tile scratch of one call, carved from one buffer: per predicate a
+// row of n_tiles + 1 64-bit words (counts, then exclusive offsets and the
+// total), then kCache 16-bit tile-local offsets per tile and predicate,
+// then (run form) kCache depths per tile.
+template <class Form>
+struct CompactScratch {
+  unsigned long long* counts;
+  uint16_t* cache;
+  int32_t* vcache;
+  int64_t n_tiles;
+
+  __host__ __device__ static int64_t tiles(int64_t n) {
+    return (n + Form::kTileSlots - 1) / Form::kTileSlots;
+  }
+  // 64-bit words of scratch for n slots
+  __host__ __device__ static int64_t words(int64_t n) {
+    const int64_t t = tiles(n);
+    const int64_t cache_bytes = Form::kStreams * t * Form::kCache * 2 +
+                                (Form::kValues ? t * Form::kCache * 4 : 0);
+    return Form::kStreams * (t + 1) + (cache_bytes + 7) / 8;
+  }
+  __host__ __device__ static CompactScratch carve(void* base, int64_t n) {
+    CompactScratch sc;
+    sc.n_tiles = tiles(n);
+    sc.counts = static_cast<unsigned long long*>(base);
+    sc.cache = reinterpret_cast<uint16_t*>(sc.counts + Form::kStreams * (sc.n_tiles + 1));
+    sc.vcache = reinterpret_cast<int32_t*>(sc.cache +
+                                           Form::kStreams * sc.n_tiles * Form::kCache);
+    return sc;
+  }
+  __device__ __forceinline__ unsigned long long* row(int s) const {
+    return counts + s * (n_tiles + 1);
+  }
+};
+
+template <class Form>
+__device__ __forceinline__ int64_t compact_warp_first() {
+  return static_cast<int64_t>(blockIdx.x) * Form::kTileSlots +
+         static_cast<int64_t>(threadIdx.x >> 5) * Form::kWarpSlots;
+}
+
+// Each warp's set slots per stream into warp_counts[s][warp]; one barrier.
+template <class Form>
+__device__ __forceinline__ void warp_totals(const uint32_t (&bits)[kCompactCols][Form::kStreams],
+                                            uint32_t (*warp_counts)[kCompactWarps]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int s = 0; s < Form::kStreams; ++s) {
+    uint32_t c = 0u;
+#pragma unroll
+    for (int col = 0; col < kCompactCols; ++col) c += __popc(bits[col][s]);
+    c = __reduce_add_sync(kFull, c);
+    if (lane == 0) warp_counts[s][warp] = c;
+  }
+  __syncthreads();
+}
+
+// Calls put(pos, c, offset, value) for every set slot of stream s, in
+// order: pos = base + its rank in the warp, c its column, offset its place
+// in the column and value its slot's Form::value.  Each column's set slots
+// are ranked by ballots and staged in the warp's shared-memory rows
+// (kColSlots entries each), then handed to put by consecutive lanes, so the
+// writes put makes are contiguous.  Every lane of the warp must call it.
+template <class Form, class Put>
+__device__ __forceinline__ void emit_ranked(const uint32_t (&bits)[kCompactCols][Form::kStreams],
+                                            const typename Form::Vals& vals, int s,
+                                            unsigned long long base, uint16_t* stage,
+                                            int32_t* vstage, Put put) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t lanes_before = (1u << lane) - 1u;
+#pragma unroll
+  for (int c = 0; c < kCompactCols; ++c) {
+    const uint32_t b = bits[c][s];
+    const uint32_t cnt = __popc(b);
+    uint32_t before = 0u, col_total = 0u;
+#pragma unroll
+    for (int k = 0; k < Form::kCountBits; ++k) {
+      const uint32_t ballot = __ballot_sync(kFull, (cnt >> k) & 1u);
+      before += static_cast<uint32_t>(__popc(ballot & lanes_before)) << k;
+      col_total += static_cast<uint32_t>(__popc(ballot)) << k;
+    }
+    if (col_total == 0u) continue;  // the same in every lane
+    uint32_t at = before;
+    for (uint32_t m = b; m != 0u; m &= m - 1u, ++at) {
+      const int j = __ffs(m) - 1;
+      stage[at] = static_cast<uint16_t>(Form::kLaneSlots * lane + j);
+      if (Form::kValues) vstage[at] = Form::value(vals, c, j);
+    }
+    __syncwarp();
+    for (uint32_t i = lane; i < col_total; i += 32) {
+      put(base + i, c, stage[i], Form::kValues ? vstage[i] : 0);
+    }
+    __syncwarp();
+    base += col_total;
+  }
+}
+
+// Pass 1: each tile's set slots per stream, and, where they are at most
+// kCache, their tile-local offsets (and depths) in the tile's scratch.
+template <class Form>
+__global__ void __launch_bounds__(kCompactThreads)
+compact_count_kernel(const Form f, int64_t n, const CompactScratch<Form> sc) {
+  constexpr int NS = Form::kStreams;
+  __shared__ uint32_t warp_counts[NS][kCompactWarps];
+  __shared__ uint16_t stage[kCompactWarps][Form::kColSlots];
+  __shared__ int32_t vstage[kCompactWarps][Form::kValues ? Form::kColSlots : 1];
+  const int warp = threadIdx.x >> 5;
+  const int64_t warp_first = compact_warp_first<Form>();
+  uint32_t bits[kCompactCols][NS];
+  typename Form::Vals vals;
+  f.load(warp_first, n, bits, vals);
+  warp_totals<Form>(bits, warp_counts);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    uint32_t total = 0u, before = 0u;
+#pragma unroll
+    for (int w = 0; w < kCompactWarps; ++w) {
+      const uint32_t c = warp_counts[s][w];
+      total += c;
+      if (w < warp) before += c;
+    }
+    if (threadIdx.x == 0) sc.row(s)[blockIdx.x] = total;
+    if (total <= Form::kCache) {  // the same in every thread of the block
+      uint16_t* cache = sc.cache + (s * sc.n_tiles + blockIdx.x) * Form::kCache;
+      int32_t* vcache = sc.vcache + static_cast<int64_t>(blockIdx.x) * Form::kCache;
+      emit_ranked<Form>(bits, vals, s, before, stage[warp], vstage[warp],
+                        [&](unsigned long long pos, int c, int offset, int32_t value) {
+        cache[pos] = static_cast<uint16_t>(warp * Form::kWarpSlots + Form::kColSlots * c + offset);
+        if (Form::kValues) vcache[pos] = value;
+      });
+    }
+  }
+}
+
+// Pass 2: row blockIdx.x of the counts (n_tiles words) scanned into
+// exclusive offsets in place, by one block; the row's sum goes after them.
+__global__ void __launch_bounds__(kCarryThreads)
+compact_carry_kernel(unsigned long long* __restrict__ counts, int64_t n_tiles) {
+  static_assert(kCarryThreads == 1024, "one warp scans the 32 warp sums");
+  __shared__ unsigned long long warp_sums[32];
+  unsigned long long* row = counts + blockIdx.x * (n_tiles + 1);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned long long running = 0;
+  for (int64_t base = 0; base < n_tiles;
+       base += static_cast<int64_t>(kCarryThreads) * kItems) {
+    const int64_t first = base + static_cast<int64_t>(threadIdx.x) * kItems;
+    unsigned long long v[kItems];
+    unsigned long long s = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      v[k] = first + k < n_tiles ? row[first + k] : 0ull;
+      s += v[k];
+    }
+    unsigned long long inc = s;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long y = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc += y;
+    }
+    if (lane == 31) warp_sums[warp] = inc;
+    __syncthreads();
+    if (warp == 0) {
+      unsigned long long w = warp_sums[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned long long y = __shfl_up_sync(kFull, w, o);
+        if (lane >= o) w += y;
+      }
+      warp_sums[lane] = w;
+    }
+    __syncthreads();
+    unsigned long long acc = running + (warp ? warp_sums[warp - 1] : 0ull) + inc - s;
+    const unsigned long long total = warp_sums[31];
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (first + k < n_tiles) row[first + k] = acc;
+      acc += v[k];
+    }
+    running += total;
+  }
+  if (threadIdx.x == 0) row[n_tiles] = running;
+}
+
+// Pass 3: each set slot's index (and, run form, its depth) at the tile's
+// offset plus its rank in the tile: copied from the tile's scratch, or,
+// where pass 1 kept none, ranked again from the input.
+template <class Form>
+__global__ void __launch_bounds__(kCompactThreads)
+compact_write_kernel(const Form f, int64_t n, const CompactScratch<Form> sc,
+                     int64_t* __restrict__ idx0, int64_t* __restrict__ idx1,
+                     int64_t* __restrict__ idx2, int32_t* __restrict__ vals_out) {
+  constexpr int NS = Form::kStreams;
+  __shared__ uint32_t warp_counts[NS][kCompactWarps];
+  const int64_t tile = blockIdx.x;
+  const int64_t tile_first = tile * Form::kTileSlots;
+  bool kept = true;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) kept &= sc.row(s)[tile + 1] - sc.row(s)[tile] <= Form::kCache;
+  if (kept) {  // the same in every thread of the block
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      int64_t* out = s == 0 ? idx0 : s == 1 ? idx1 : idx2;
+      const unsigned long long base = sc.row(s)[tile];
+      const int count = static_cast<int>(sc.row(s)[tile + 1] - base);
+      const uint16_t* cache = sc.cache + (s * sc.n_tiles + tile) * Form::kCache;
+      for (int i = threadIdx.x; i < count; i += kCompactThreads) {
+        out[base + i] = tile_first + cache[i];
+        if (Form::kValues) vals_out[base + i] = sc.vcache[tile * Form::kCache + i];
+      }
+    }
+    return;
+  }
+  __shared__ uint16_t stage[kCompactWarps][Form::kColSlots];
+  __shared__ int32_t vstage[kCompactWarps][Form::kValues ? Form::kColSlots : 1];
+  const int warp = threadIdx.x >> 5;
+  const int64_t warp_first = compact_warp_first<Form>();
+  uint32_t bits[kCompactCols][NS];
+  typename Form::Vals vals;
+  f.load(warp_first, n, bits, vals);
+  warp_totals<Form>(bits, warp_counts);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    int64_t* out = s == 0 ? idx0 : s == 1 ? idx1 : idx2;
+    unsigned long long base = sc.row(s)[tile];
+    for (int w = 0; w < warp; ++w) base += warp_counts[s][w];
+    emit_ranked<Form>(bits, vals, s, base, stage[warp], vstage[warp],
+                      [&](unsigned long long pos, int c, int offset, int32_t value) {
+      out[pos] = warp_first + Form::kColSlots * c + offset;
+      if (Form::kValues) vals_out[pos] = value;
+    });
+  }
+}
+
+// Passes 1 and 2 over scratch of CompactScratch<Form>::words(n) words.
+template <class Form>
+int launch_compact_count(const Form& f, void* scratch, int64_t n, int device,
+                         cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto sc = CompactScratch<Form>::carve(scratch, n);
+  compact_count_kernel<Form><<<static_cast<unsigned>(sc.n_tiles), kCompactThreads, 0, stream>>>(
+      f, n, sc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  compact_carry_kernel<<<Form::kStreams, kCarryThreads, 0, stream>>>(sc.counts, sc.n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pass 3, after launch_compact_count on the same scratch.
+template <class Form>
+int launch_compact_write(const Form& f, void* scratch, int64_t n, int64_t* idx0,
+                         int64_t* idx1, int64_t* idx2, int32_t* vals, int device,
+                         cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto sc = CompactScratch<Form>::carve(scratch, n);
+  compact_write_kernel<Form><<<static_cast<unsigned>(sc.n_tiles), kCompactThreads, 0, stream>>>(
+      f, n, sc, idx0, idx1, idx2, vals);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int64_t tiles_for(int64_t n) { return (n + kTile - 1) / kTile; }
 
 // Sets the device and runs passes 1 and 2 over `in`, leaving each tile's
@@ -798,6 +1264,73 @@ int gci_edges_scan(const int32_t* delta, const int8_t* valid, int32_t* depth,
   edges_scan_tiles_kernel<<<static_cast<unsigned>(tiles_for(n)), kThreads, 0, s>>>(
       delta, valid, tile_scratch, n, lo, hi, depth, rise, fall);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The compaction's scratch, in 64-bit words, for n slots and n_masks masks
+// (flag form) or for the run form: per predicate n_tiles + 1 words of counts,
+// offsets and the total (the total of predicate s is word
+// s * (n_tiles + 1) + n_tiles), then the tiles' kept entries.
+int64_t gci_compact_flags_scratch_words(int64_t n, int n_masks) {
+  switch (n_masks) {
+    case 1: return CompactScratch<FlagForm<1>>::words(n);
+    case 2: return CompactScratch<FlagForm<2>>::words(n);
+    case 3: return CompactScratch<FlagForm<3>>::words(n);
+    default: return -1;
+  }
+}
+int64_t gci_compact_runs_scratch_words(int64_t n) { return CompactScratch<RunForm>::words(n); }
+
+// Slots per tile of the two forms.
+int gci_compact_flags_tile_slots() { return FlagForm<1>::kTileSlots; }
+int gci_compact_runs_tile_slots() { return RunForm::kTileSlots; }
+
+// Flag form, passes 1 and 2: the counts of (x & m) != 0 for the n_masks
+// (1-3) masks in the bytes of `masks`.  x is 16-byte aligned.
+int gci_compact_flags_count(const int8_t* x, uint32_t masks, int n_masks, void* scratch,
+                            int64_t n, int device, void* stream) {
+  if (n <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (n_masks) {
+    case 1: return launch_compact_count(FlagForm<1>{x, masks}, scratch, n, device, s);
+    case 2: return launch_compact_count(FlagForm<2>{x, masks}, scratch, n, device, s);
+    case 3: return launch_compact_count(FlagForm<3>{x, masks}, scratch, n, device, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Flag form, pass 3: the ascending indices under each mask into idx0..idx2
+// (exactly sized by the totals; unused streams may be null).
+int gci_compact_flags_write(const int8_t* x, uint32_t masks, int n_masks, void* scratch,
+                            int64_t n, int64_t* idx0, int64_t* idx1, int64_t* idx2,
+                            int device, void* stream) {
+  if (n <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (n_masks) {
+    case 1: return launch_compact_write(FlagForm<1>{x, masks}, scratch, n, idx0, idx1, idx2,
+                                        nullptr, device, s);
+    case 2: return launch_compact_write(FlagForm<2>{x, masks}, scratch, n, idx0, idx1, idx2,
+                                        nullptr, device, s);
+    case 3: return launch_compact_write(FlagForm<3>{x, masks}, scratch, n, idx0, idx1, idx2,
+                                        nullptr, device, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Run form, passes 1 and 2: the count of depth[i] != depth[i-1] (slot 0
+// against carry when has_carry, else forced).  depth is 16-byte aligned.
+int gci_compact_runs_count(const int32_t* depth, int32_t carry, int has_carry, void* scratch,
+                           int64_t n, int device, void* stream) {
+  if (n <= 0) return 0;
+  return launch_compact_count(RunForm{depth, carry, has_carry}, scratch, n, device,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Run form, pass 3: the boundaries' ascending indices and their depths.
+int gci_compact_runs_write(const int32_t* depth, int32_t carry, int has_carry, void* scratch,
+                           int64_t n, int64_t* idx, int32_t* vals, int device, void* stream) {
+  if (n <= 0) return 0;
+  return launch_compact_write(RunForm{depth, carry, has_carry}, scratch, n, idx, nullptr,
+                              nullptr, vals, device, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

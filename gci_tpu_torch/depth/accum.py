@@ -28,13 +28,16 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 # Bytes per genome slot that the resident device path (depth/fused.py) holds
 # on the card at its peak, in a dual-type run with gaps.  Through the
 # two-type stage each read type's gap-masked depth and flag bytes (4 + 1,
-# twice) and the two-type maximum (4) stay resident, 14 B/slot.  The largest
-# transient on top of them is the two-type issue pass (``collapse_dict``):
-# its rise and fall bitmaps (1 + 1), the bool bitmap ``_batched_readback``
-# counts (1) and the int64 copy that ``sum`` of a bool tensor makes (8),
-# 25 B/slot in all.  The card measured 9,897,666,048 B at 395,765,512
-# slots, 25.009 B/slot (an H100 80GB HBM3 at 700 W, chip_smoke.py).
-RESIDENT_BYTES_PER_SLOT = 25
+# twice) and the two-type maximum (4) stay resident, 14 B/slot.  The
+# compactions add no per-slot buffer (the compaction kernel keeps per-tile
+# scratch only), so the largest transient on top is the scan-window marks
+# of the two-type issue pass (``collapse_dict`` -> ``valid_marks_for``):
+# the int32 event scatter (4), its int32 prefix sum (4), the bool of
+# ``prefix > 0`` (1) and the int8 marks (1), 24 B/slot in all.  The card
+# measured 9,502,195,712 B at 395,765,512 slots, 24.0097 B/slot (an NVIDIA
+# H100 80GB HBM3 at 700 W, chip_smoke.py phase 5, packed and flags paths);
+# the value is that, rounded up.
+RESIDENT_BYTES_PER_SLOT = 24.01
 
 
 def stream_slot_limit(device: torch.device) -> int:
@@ -48,7 +51,7 @@ def stream_slot_limit(device: torch.device) -> int:
     if device.type != "cuda":
         return _INT32_MAX
     free, _ = torch.cuda.mem_get_info(device)
-    return min(_INT32_MAX, free // RESIDENT_BYTES_PER_SLOT)
+    return min(_INT32_MAX, int(free // RESIDENT_BYTES_PER_SLOT))
 
 
 @dataclass(frozen=True)

@@ -19,10 +19,14 @@ its own positions, one copy each).  The reference's collectives map so:
   each shard adds the wrapped sum of the totals of the shards left of it,
   from one host all-gather of the shard totals;
 * the ``ppermute`` of a shard's last element to its right neighbour: one
-  host all-gather of every shard's last element.
+  host all-gather of every shard's last element;
+* the per-shard compaction (the reference's count program, then
+  ``cumsum`` + ``searchsorted`` to a power-of-two size): the compaction
+  kernel's flag or run form per shard, exactly sized, then one host
+  all-gather of the results.
 
-Shard-local indices are int32 on the device; global positions are int64
-on the host only.  Rows are selected per shard on the host and scattered
+Events reach the device at int32 shard-local offsets; global positions are
+int64 on the host only.  Rows are selected per shard on the host and scattered
 exactly, so no padding row or out-of-range sentinel exists.
 """
 from __future__ import annotations
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 from gci_tpu_torch.depth.accum import GenomeLayout, clamp_read_intervals
-from gci_tpu_torch.depth.scan import depth_scan, fused_depth_scan
+from gci_tpu_torch.depth.scan import compact_flags, compact_runs, depth_scan, fused_depth_scan
 from gci_tpu_torch.parallel import distributed
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -132,6 +136,13 @@ def scatter_events_into(buf: torch.Tensor, events) -> torch.Tensor:
     buf.index_add_(0, torch.from_numpy(idx).to(buf.device),
                    torch.from_numpy(val).to(buf.device))
     return buf
+
+
+def _to_host(parts) -> list[np.ndarray]:
+    """Device int tensors as int64 host arrays, in one transfer."""
+    packed = torch.cat([p.to(torch.int64) for p in parts]).cpu().numpy()
+    bounds = np.cumsum([0] + [p.shape[0] for p in parts])
+    return [packed[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
 
 
 def _local_prefix_sum(delta: torch.Tensor) -> torch.Tensor:
@@ -297,63 +308,55 @@ def sharded_interval_edges(mesh, depth: dict, valid: dict, leftmost: int,
     return rise, fall
 
 
-def sharded_change(mesh, depth: dict) -> dict[int, torch.Tensor]:
-    """Run-boundary bool bitmaps per shard: depth[i] != depth[i-1], across a
+def _gather_shard_records(out: dict) -> dict:
+    """{gp index: list of int64 host arrays} of every shard on every
+    process, from ``out`` of this process's shards: one host all-gather of
+    self-delimiting records ``[g, k, k lengths, k arrays]`` in process
+    order; the first holder's copy of a shard is kept."""
+    if distributed.process_count() == 1:
+        return out
+    flat = [np.concatenate([[g, len(parts)], [len(p) for p in parts], *parts]).astype(np.int64)
+            for g, parts in out.items()]
+    (flat,) = distributed.allgather_concat(
+        [np.concatenate(flat) if flat else np.empty(0, np.int64)])
+    got, p = {}, 0
+    while p < flat.shape[0]:
+        g, k = int(flat[p]), int(flat[p + 1])
+        lens = flat[p + 2 : p + 2 + k]
+        p += 2 + k
+        parts = []
+        for m in lens.tolist():
+            parts.append(flat[p : p + m])
+            p += m
+        got.setdefault(g, parts)
+    return got
+
+
+def sharded_compact_gather(flags: dict, masks: tuple) -> dict[int, list[np.ndarray]]:
+    """{gp index: one int64 host array per mask} for every shard: the sorted
+    shard-local indices where ``(flags[g] & m) != 0`` (the flag form of the
+    compaction kernel per shard of this process, exactly sized, one
+    readback each), then one host all-gather across processes."""
+    out = {g: _to_host(compact_flags(x, masks)) for g, x in flags.items()}
+    return _gather_shard_records(out)
+
+
+def sharded_runs(mesh, depth: dict, offsets: dict) -> dict[int, list[np.ndarray]]:
+    """{gp index: [idx, vals, offset_vals]} for every shard, int64 host
+    arrays: the sorted shard-local run boundaries of the depth (across a
     shard border against the left shard's last value; global slot 0 is
-    always a boundary."""
+    always a boundary), the depth of each run, and the depth at the
+    shard-local ``offsets[g]``.
+
+    Per shard of this process: the run form of the compaction kernel, with
+    the left shard's last value (one host all-gather of every shard's last
+    element) as its carry, and the offsets' gather, read back in one
+    transfer; then one host all-gather across processes.
+    """
     last = shard_values(mesh, {g: int(x[-1]) for g, x in depth.items()})
     out = {}
     for g, x in depth.items():
-        c = torch.empty(x.shape[0], dtype=torch.bool, device=x.device)
-        torch.ne(x[1:], x[:-1], out=c[1:])
-        c[:1] = (x[:1] != last[g - 1]) if g else True
-        out[g] = c
-    return out
-
-
-def sharded_compact_gather(mesh, bitmaps: dict, values: dict | None = None,
-                           offsets: dict | None = None):
-    """{gp index: (idx, vals, offset_vals)} for every shard, int64 host
-    arrays: the sorted shard-local indices of a bool bitmap's set entries,
-    and, given ``values``, the values there and at the shard-local
-    ``offsets[g]``.
-
-    Per shard of this process: the bitmap's prefix sum (the int8 form of
-    ``depth_scan``), whose last entry is the count (a ``sum`` of the bitmap
-    would make an int64 copy, 8 B/slot), ``searchsorted`` of the ranks and
-    the gathers, read back in one transfer; then one host all-gather across
-    processes.
-    """
-    out = {}
-    for g, bits in bitmaps.items():
-        pos = depth_scan(bits.view(torch.int8))
-        n = int(pos[-1])
-        idx = torch.searchsorted(pos, torch.arange(1, n + 1, dtype=torch.int32,
-                                                   device=pos.device))
-        del pos
-        parts = [idx]
-        k = 0
-        if values is not None:
-            off = torch.as_tensor(offsets[g], dtype=torch.int64, device=idx.device)
-            k = off.shape[0]
-            parts += [values[g][idx].to(torch.int64), values[g][off].to(torch.int64)]
-        got = torch.cat(parts).cpu().numpy()
-        nv = n if values is not None else 0
-        out[g] = (got[:n], got[n : n + nv], got[n + nv : n + nv + k])
-    if distributed.process_count() == 1:
-        return out
-    # self-delimiting records [g, n, k, idx, vals, offset_vals] of each
-    # process's shards, in process order; the first holder's copy is kept
-    flat = [np.concatenate([[g, len(i), len(o)], i, v, o]).astype(np.int64)
-            for g, (i, v, o) in out.items()]
-    (flat,) = distributed.allgather_concat(
-        [np.concatenate(flat) if flat else np.empty(0, np.int64)])
-    out, p = {}, 0
-    while p < flat.shape[0]:
-        g, n, k = (int(x) for x in flat[p : p + 3])
-        nv = n if values is not None else 0
-        p += 3
-        rec = (flat[p : p + n], flat[p + n : p + n + nv], flat[p + n + nv : p + n + nv + k])
-        out.setdefault(g, rec)
-        p += n + nv + k
-    return out
+        idx, vals = compact_runs(x, last[g - 1] if g else None)
+        off = torch.as_tensor(offsets[g], dtype=torch.int64, device=x.device)
+        out[g] = _to_host([idx, vals, x[off]])
+    return _gather_shard_records(out)

@@ -9,11 +9,13 @@ the construction scatters a plain read delta instead, builds an int8 flag
 byte per slot (bit0 in-gap, bit1 scan-window valid) from interval events,
 and runs the flags scan kernel, which is exact at any depth.
 Everything that leaves the device is O(reads + runs + edges): run boundaries
-and issue edges are compacted on the device with a prefix sum (the
-``depth_scan`` kernel) and ``searchsorted``, then read back in one transfer.
+and issue edges are compacted on the device by the stream-compaction kernel
+(``scan.compact_flags`` over the flag byte, ``scan.compact_runs`` over a
+depth), then read back in one transfer.  The reference compacts with a prefix
+sum and ``searchsorted``, to power-of-two sizes; the counts here are exact.
 
 Plain XLA ops of the reference are plain torch ops here: the scatter-add,
-``where``, ``maximum``, counts, ``searchsorted`` and gathers.  The torch
+``where``, ``maximum`` and gathers.  The torch
 device is explicit: every constructor takes it, and every value keeps its
 tensors there.
 """
@@ -30,16 +32,18 @@ from gci_tpu_torch.depth.base import (
 )
 from gci_tpu_torch.depth.device import (
     _local_prefix_sum,
+    _to_host,
     edge_indices_to_intervals,
     pack_read_deltas,
     scatter_events,
     scatter_events_into,
 )
 from gci_tpu_torch.depth.scan import (
+    compact_flags,
+    compact_runs,
     fused_depth_scan_flags,
     fused_depth_scan_packed,
     rise_fall,
-    run_boundaries,
 )
 
 # depth-field bound of the packed event word (read_delta<<2): the scan is
@@ -81,9 +85,11 @@ def _mask(d: torch.Tensor, marks: torch.Tensor, gap_bit: int) -> torch.Tensor:
     return torch.where((marks & gap_bit) != 0, 0, d)
 
 
-def _edges(depth: torch.Tensor, valid: torch.Tensor, lo: int, hi: int):
-    """Rise/fall bitmaps of the issue mask (``_elementwise_fns``)."""
-    return rise_fall((depth > lo) & (depth <= hi) & ((valid & 2) != 0))
+def _edges(depth: torch.Tensor, valid: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Edge bytes of the issue mask (``_elementwise_fns``): bit0 rise, bit1
+    fall, so one compaction reads both."""
+    rise, fall = rise_fall((depth > lo) & (depth <= hi) & ((valid & 2) != 0))
+    return rise.view(torch.int8) + fall.view(torch.int8) * 2
 
 
 def _flags(pad_total: int, device: torch.device, gap_s, gap_e, val_s, val_e):
@@ -111,76 +117,43 @@ def valid_marks_for(layout: GenomeLayout, flank_len: int, pad_total: int,
     return flags_for(layout, None, flank_len, pad_total, device)
 
 
-def _compact(bits: torch.Tensor, count: int) -> torch.Tensor:
-    """Sorted indices of the ``count`` set entries of a bool bitmap: the
-    k-th is ``searchsorted(prefix_sum(bits), k)`` (the reference's
-    ``_compact_fn``).  The bitmap is scanned as the int8 bytes it is (a free
-    view), so no int32 copy of it is made; the int32 prefix buffer dies on
-    return."""
-    pos = _local_prefix_sum(bits.view(torch.int8))
-    k = torch.arange(1, count + 1, dtype=torch.int32, device=bits.device)
-    return torch.searchsorted(pos, k)
-
-
-def _batched_readback(array: torch.Tensor, layout: GenomeLayout, bitmap,
-                      n_streams: int, gather_stream: int):
-    """Compact ``n_streams`` bitmaps and read ``array`` at the gather
-    stream's indices and at every target offset, in one transfer.
-
-    ``bitmap(k)`` builds stream k's bool bitmap on demand, so at most one
-    bitmap and one prefix buffer live at a time.  Counts are exact (the
-    reference pads them to powers of two for static XLA shapes).  Returns
-    (list of int64 index arrays, gathered values, values at the offsets).
-    """
-    counts = torch.stack([bitmap(k).sum() for k in range(n_streams)]).tolist()
-    idx = []
-    for k, c in enumerate(counts):
-        if c == 0:
-            idx.append(torch.empty(0, dtype=torch.int64, device=array.device))
-        else:
-            idx.append(_compact(bitmap(k), c))
-    offsets = torch.as_tensor(
-        np.asarray(layout.offsets[:-1], np.int64), device=array.device
-    )
-    parts = idx + [array[idx[gather_stream]], array[offsets]]
-    packed = torch.cat([p.to(torch.int64) for p in parts]).cpu().numpy()
-    out_idx = []
-    cursor = 0
-    for c in counts:
-        out_idx.append(packed[cursor : cursor + c])
-        cursor += c
-    g_count = counts[gather_stream]
-    gathered = packed[cursor : cursor + g_count]
-    offset_vals = packed[cursor + g_count :]
-    return out_idx, gathered, offset_vals
+def _offset_values(array: torch.Tensor, layout: GenomeLayout) -> torch.Tensor:
+    """``array`` at every target's first slot."""
+    return array[torch.as_tensor(np.asarray(layout.offsets[:-1], np.int64),
+                                 device=array.device)]
 
 
 def _batched_flags_readback(array, layout: GenomeLayout, flags, masks: tuple,
                             gather_stream: int):
-    """``_batched_readback`` over bit-masks of one flag array (the kernel's
-    rise/fall/change output)."""
-    return _batched_readback(
-        array, layout, lambda k: (flags & masks[k]) != 0, len(masks),
-        gather_stream,
-    )
+    """One compaction of the bit-masks of one flag byte array (the kernel's
+    rise/fall/change output), then ``array`` at the gather stream's indices
+    and at every target offset, all read back in one transfer.  Counts are
+    exact (the reference pads them to powers of two for static XLA shapes).
+    Returns (list of int64 index arrays, gathered values, values at the
+    offsets)."""
+    idx = compact_flags(flags, masks)
+    *out_idx, gathered, offset_vals = _to_host(
+        idx + [array[idx[gather_stream]], _offset_values(array, layout)])
+    return out_idx, gathered, offset_vals
 
 
-def _batched_edge_readback(array, layout: GenomeLayout, bitmaps,
-                           gather_stream: int):
-    """``_batched_readback`` over separate bitmaps."""
-    return _batched_readback(
-        array, layout, lambda k: bitmaps[k] != 0, len(bitmaps), gather_stream
-    )
+def _runs_readback(array, layout: GenomeLayout):
+    """(run-boundary indices, the depth of each run, ``array`` at every
+    target offset) as int64 host arrays: one run-form compaction, one
+    transfer."""
+    idx, vals = compact_runs(array)
+    return tuple(_to_host([idx, vals, _offset_values(array, layout)]))
 
 
 def compact_indices(bitmap: torch.Tensor) -> np.ndarray:
     """Device-side compaction of a nonzero bitmap into sorted int64 indices
-    (count first, then an exact-size compaction; O(k) transfer)."""
-    bits = bitmap != 0
-    n = int(bits.sum())
-    if n == 0:
-        return np.empty(0, np.int64)
-    return _compact(bits, n).cpu().numpy().astype(np.int64)
+    (one exact-size compaction; O(k) transfer)."""
+    if bitmap.dtype in (torch.bool, torch.int8, torch.uint8):
+        x, mask = bitmap.view(torch.int8), 0xFF
+    else:
+        x, mask = (bitmap != 0).view(torch.int8), 1
+    (idx,) = compact_flags(x, (mask,))
+    return idx.cpu().numpy()
 
 
 def packed_event_word(layout: GenomeLayout, target_id: np.ndarray,
@@ -465,11 +438,10 @@ class DeviceDepth(ResidentDepth):
         if start_pos == 0 and key in self._edge_cache:
             return self._edge_cache[key]
         valid = valid_marks_for(self.layout, flank_len, self.pad_total, self.device)
-        rise, fall = _edges(self.array, valid, int(leftmost), int(rightmost))
+        edges = _edges(self.array, valid, int(leftmost), int(rightmost))
         del valid
-        (rise_idx, fall_idx), _, _ = _batched_edge_readback(
-            self.array, self.layout, (rise, fall), 0
-        )
+        rise_idx, fall_idx = _to_host(compact_flags(edges, (1, 2)))
+        del edges
         out = edge_indices_to_intervals(
             self.layout, rise_idx, fall_idx, flank_len, start_pos,
         )
@@ -485,13 +457,10 @@ class DeviceDepth(ResidentDepth):
         if self._events is not None:
             return self._events
         if self._change_idx is None or self._gather_pos is None:
-            # masked/merged objects: recompute run boundaries with the same
-            # batched readback the construction path uses
-            change = run_boundaries(self.array)
-            (self._change_idx,), change_vals, offset_vals = (
-                _batched_edge_readback(self.array, self.layout, (change,), 0)
-            )
-            del change
+            # masked/merged objects: the run form of the compaction gives
+            # the boundaries and their values at once
+            self._change_idx, change_vals, offset_vals = _runs_readback(
+                self.array, self.layout)
             self._set_gather_map(self._change_idx, change_vals, offset_vals)
 
         def gather(all_idx: np.ndarray) -> np.ndarray:

@@ -325,8 +325,8 @@ class SweepAccumulator(_Folding):
 
     def _finalize_one(self) -> None:
         """Scan the frontier chunk and compact its run boundaries: the carry
-        at its slot 0, the int32 scan, the boundary bitmap seeded with the
-        carry and its int8 scan, then one readback.  The next carry is the
+        at its slot 0, the int32 scan, then the run form of the compaction
+        seeded with the carry and one readback.  The next carry is the
         depth at the chunk's last slot, the value of its last run."""
         c = self.frontier
         a, b = self._bounds(c)

@@ -14,6 +14,16 @@ reaches ``pl.pallas_call`` has its wrapper here:
 * ``fused_depth_scan`` — depth and the edges of ``lo < depth <= hi`` inside
   a valid stream, with no gap mask (``device.depth_and_edges_fused``).
 
+Beside them, the stream compaction that ``gci_tpu`` builds on
+``depth_scan`` and ``searchsorted`` (``gci_tpu/depth/fused.py``
+``_compact_fn``, ``gci_tpu/depth/device.py``
+``make_sharded_compact_gather_fn``), as one kernel of two forms:
+
+* ``compact_flags`` — the ascending indices of the slots where
+  ``(x & m) != 0``, for up to three masks of one int8 stream;
+* ``compact_runs`` — the run boundaries of an int32 depth and the depth of
+  each run.
+
 Each wrapper runs its plain version for a tensor on the CPU, and for a CUDA
 tensor launches its hand-written kernel (``gci_tpu_torch/csrc/scan.cu``) or
 raises: it never falls back.  The plain versions define the semantics; the
@@ -170,3 +180,57 @@ def fused_depth_scan(delta: torch.Tensor, valid: torch.Tensor, leftmost: int,
     if _route(delta):
         return fused_depth_scan_torch(delta, valid, leftmost, rightmost)
     return kernels.launch_edges_scan(delta, valid, leftmost, rightmost)
+
+
+# ---------------------------------------------------------------------------
+# stream compaction
+# ---------------------------------------------------------------------------
+
+def _signed_byte(m: int) -> int:
+    """Mask m (1-255) as the int8 value of the same bits."""
+    return m - 256 if m > 127 else m
+
+
+def compact_flags_torch(x: torch.Tensor, masks) -> list[torch.Tensor]:
+    """Plain version of ``compact_flags``: a mask and ``nonzero`` per mask."""
+    return [torch.nonzero((x & _signed_byte(int(m))) != 0).squeeze(1) for m in masks]
+
+
+def compact_flags(x: torch.Tensor, masks) -> list[torch.Tensor]:
+    """Ascending int64 indices of the slots of a 1-D int8 tensor where
+    ``(x & m) != 0``, one tensor per mask (1 to 3 masks, each 1-255), each
+    exactly as long as its count.  A bool bitmap is this with mask 1 on
+    ``bits.view(torch.int8)``.  The counts cost one host sync."""
+    masks = tuple(int(m) for m in masks)
+    if x.dtype != torch.int8 or x.dim() != 1:
+        raise ValueError(f"compact_flags: expected a 1-D int8 tensor, got {x.dtype} "
+                         f"of shape {tuple(x.shape)}")
+    if not 1 <= len(masks) <= 3 or not all(1 <= m <= 255 for m in masks):
+        raise ValueError(f"compact_flags: expected 1 to 3 masks in 1..255, got {masks}")
+    if _route(x):
+        return compact_flags_torch(x, masks)
+    return kernels.launch_compact_flags(x, masks)
+
+
+def compact_runs_torch(depth: torch.Tensor, carry: int | None = None):
+    """Plain version of ``compact_runs``: the boundary bitmap, ``nonzero``
+    and a gather."""
+    change = torch.empty(depth.shape[0], dtype=torch.bool, device=depth.device)
+    torch.ne(depth[1:], depth[:-1], out=change[1:])
+    change[:1] = True if carry is None else depth[:1] != carry
+    idx = torch.nonzero(change).squeeze(1)
+    return idx, depth[idx]
+
+
+def compact_runs(depth: torch.Tensor, carry: int | None = None):
+    """(int64 indices, int32 depths) of the run boundaries of a 1-D int32
+    depth: ``depth[i] != depth[i-1]``, slot 0 compared against ``carry``
+    (the depth just before it), or always a boundary when ``carry`` is
+    None; each boundary with the depth of its run.  Exactly sized; the
+    count costs one host sync."""
+    if depth.dtype != torch.int32 or depth.dim() != 1:
+        raise ValueError(f"compact_runs: expected a 1-D int32 tensor, got {depth.dtype} "
+                         f"of shape {tuple(depth.shape)}")
+    if _route(depth):
+        return compact_runs_torch(depth, carry)
+    return kernels.launch_compact_runs(depth, carry)

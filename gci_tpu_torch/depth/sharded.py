@@ -33,32 +33,21 @@ from gci_tpu_torch.depth.base import (
 from gci_tpu_torch.depth.device import (
     edge_indices_to_intervals,
     pack_read_deltas_sharded,
-    sharded_change,
     sharded_compact_gather,
     sharded_depth,
     sharded_interval_edges,
+    sharded_runs,
 )
 from gci_tpu_torch.depth.fused import _valid_intervals
 from gci_tpu_torch.parallel import distributed
 from gci_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 
-def _shard_compact(mesh: Mesh, bitmaps: dict, values: dict | None, pad_total: int,
-                   offsets: np.ndarray):
-    """Host assembly of the per-shard compaction: (global sorted int64
-    indices, values at them, values at the global ``offsets``); the values
-    are empty when ``values`` is None."""
-    gp = mesh.shape["gp"]
-    shard = pad_total // gp
-    o_shard = offsets // shard
-    loff = None if values is None else {g: offsets[o_shard == g] % shard for g in range(gp)}
-    res = sharded_compact_gather(mesh, bitmaps, values, loff)
-    idx = np.concatenate([res[g][0] + g * shard for g in range(gp)])
-    vals = np.concatenate([res[g][1] for g in range(gp)])
-    offset_vals = np.empty(offsets.shape[0], np.int64)
-    for g in range(gp):
-        offset_vals[o_shard == g] = res[g][2]
-    return idx, vals, offset_vals
+def _global_indices(mesh: Mesh, pad_total: int, res: dict, k: int) -> np.ndarray:
+    """The k-th array of every shard's record, shard-local indices made
+    global, in genome order."""
+    shard = pad_total // mesh.shape["gp"]
+    return np.concatenate([res[g][k] + g * shard for g in range(mesh.shape["gp"])])
 
 
 def _interval_marks(mesh: Mesh, pad_total: int, starts: np.ndarray,
@@ -244,11 +233,13 @@ class ShardedDepth(ResidentDepth):
             self.mesh, self.shards, self._valid_marks(flank_len), int(leftmost),
             int(rightmost),
         )
-        no_off = np.empty(0, np.int64)
-        rise_idx = _shard_compact(self.mesh, rise, None, self.pad_total, no_off)[0]
-        del rise
-        fall_idx = _shard_compact(self.mesh, fall, None, self.pad_total, no_off)[0]
-        del fall
+        # one edge byte per shard (bit0 rise, bit1 fall): one compaction
+        edges = {g: rise.pop(g).view(torch.int8) + fall.pop(g).view(torch.int8) * 2
+                 for g in list(rise)}
+        res = sharded_compact_gather(edges, (1, 2))
+        del edges
+        rise_idx = _global_indices(self.mesh, self.pad_total, res, 0)
+        fall_idx = _global_indices(self.mesh, self.pad_total, res, 1)
         return edge_indices_to_intervals(
             self.layout, rise_idx, fall_idx, flank_len, start_pos
         )
@@ -257,19 +248,24 @@ class ShardedDepth(ResidentDepth):
     def to_events(self):
         """O(runs) host view: {target: DepthEvents}.
 
-        Run boundaries from the sharded change bitmaps, compacted per shard
-        with the depth at each boundary and at every target start, in one
-        readback per shard.  Used for the checkpoint writer, the regions
-        report and plotting.
+        Run boundaries compacted per shard by the run form of the
+        compaction kernel, with the depth of each run and at every target
+        start, in one readback per shard.  Used for the checkpoint writer,
+        the regions report and plotting.
         """
         if self._events is not None:
             return self._events
-        change = sharded_change(self.mesh, self.shards)
         offsets = np.asarray(self.layout.offsets[:-1], np.int64)
-        idx, vals, offset_vals = _shard_compact(
-            self.mesh, change, self.shards, self.pad_total, offsets
-        )
-        del change
+        gp = self.mesh.shape["gp"]
+        shard = self.pad_total // gp
+        o_shard = offsets // shard
+        res = sharded_runs(self.mesh, self.shards,
+                           {g: offsets[o_shard == g] % shard for g in self.shards})
+        idx = _global_indices(self.mesh, self.pad_total, res, 0)
+        vals = np.concatenate([res[g][1] for g in range(gp)])
+        offset_vals = np.empty(offsets.shape[0], np.int64)
+        for g in range(gp):
+            offset_vals[o_shard == g] = res[g][2]
         pos = np.concatenate([idx, offsets])
         allv = np.concatenate([vals, offset_vals])
         order = np.argsort(pos, kind="stable")

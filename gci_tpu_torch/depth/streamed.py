@@ -1,7 +1,7 @@
 """Streamed depth for genomes past the resident device path.
 
 Counterpart of ``gci_tpu/depth/streamed.py``.  The resident path
-(``depth/fused.py``) indexes genome slots with int32 and holds about 25 B per
+(``depth/fused.py``) indexes genome slots with int32 and holds about 24 B per
 slot on the card (``accum.RESIDENT_BYTES_PER_SLOT``), so a human T2T
 assembly (3.1 Gbp) is past the first limit and near the second on an 80 GB
 card.  This path scans the concatenated genome axis in chunks of
@@ -25,9 +25,9 @@ independent of the genome's size.  Consumers:
 * ``events_from_reads_streamed``: run-length ``DepthEvents`` per target, the
   pipeline's ``streamed`` backend.  Each chunk's run boundaries (seeded with
   the carry, so a run across a chunk border makes no boundary) are
-  compacted on the card (``chunk_runs``: the int8 form of the scan kernel
-  and ``searchsorted``) and read back with their values, so no per-base
-  array exists anywhere, on the host or the card;
+  compacted on the card with their values (``chunk_runs``: the run form of
+  the compaction kernel) and read back, so no per-base array exists
+  anywhere, on the host or the card;
 * ``overlap.SweepAccumulator``, which runs ``chunk_runs`` on each chunk
   the coordinate sweep has passed.
 """
@@ -39,16 +39,16 @@ import torch
 from gci_tpu_torch.depth.accum import GenomeLayout, clamp_read_intervals
 from gci_tpu_torch.depth.base import events_from_change_indices
 from gci_tpu_torch.depth.device import scatter_events
-from gci_tpu_torch.depth.scan import depth_scan
+from gci_tpu_torch.depth.scan import compact_runs, depth_scan
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
 
 # Slots per chunk, read at call time so a caller can lower it.  A chunk of
-# 2^28 slots holds at most 9 B/slot on the card (the delta and its depth at
-# the scan; the depth, the boundary bitmap and the compaction's int32
-# prefix after it), about 2.3 GiB, and each chunk pays two host syncs (its
-# boundary count, its readback), which at this size are small beside the
-# chunk's own passes over its 2^28 slots.
+# 2^28 slots holds at most 8 B/slot on the card (the delta and its depth at
+# the scan; the compaction after it holds no per-slot buffer), about 2 GiB,
+# and each chunk pays two host syncs (its boundary count, its readback),
+# which at this size are small beside the chunk's own passes over its 2^28
+# slots.
 CHUNK_SLOTS = 1 << 28
 
 
@@ -141,12 +141,8 @@ def events_from_reads_streamed(
     """{target: DepthEvents} of a genome of any size; O(chunk) on the card
     and O(runs) on the host.
 
-    Per chunk: the run-boundary bitmap on the card, seeded with the carry
-    (``-1`` before the first chunk, which forces a boundary at slot 0), its
-    int32 prefix sum (the int8 form of the scan kernel), whose last entry
-    is the boundary count (one host sync; a ``sum`` of the bool bitmap
-    would make an int64 copy of it, 8 B/slot), then ``searchsorted`` of the
-    ranks and a value gather, read back in one transfer.
+    Per chunk, ``chunk_runs``: its run boundaries and their depths,
+    compacted on the card and read back.
     """
     runs = []
     for a, _, depth, carry in _iter_depth_chunks(
@@ -163,26 +159,15 @@ def chunk_runs(depth: torch.Tensor, a: int, carry: int):
     both int64 on the host, each boundary with the depth of its run.
 
     The chunk starts at global slot ``a``; ``carry`` is the depth at
-    ``a - 1``.  The boundary bitmap is seeded with the carry (``-1``
-    before the first chunk, which forces a boundary at slot 0), so a run
-    across a chunk border makes no boundary.  Its int32 prefix sum (the
-    int8 form of the scan kernel) gives the boundary count as its last
-    entry (one host sync; a ``sum`` of the bool bitmap would make an int64
-    copy of it, 8 B/slot), then ``searchsorted`` of the ranks and a value
-    gather are read back in one transfer.
+    ``a - 1``.  The run form of the compaction compares slot 0 with the
+    carry (the first chunk's slot 0 is always a boundary), so a run across
+    a chunk border makes no boundary; it writes each boundary's depth
+    beside its index, and both come back in one transfer after the count's
+    host sync.
     """
-    change = torch.empty(depth.shape[0], dtype=torch.bool, device=depth.device)
-    torch.ne(depth[1:], depth[:-1], out=change[1:])
-    change[:1] = depth[:1] != (carry if a > 0 else -1)
-    pos = depth_scan(change.view(torch.int8))
-    del change
-    n = int(pos[-1])
-    if n == 0:
-        return np.empty(0, np.int64), np.empty(0, np.int64)
-    k = torch.arange(1, n + 1, dtype=torch.int32, device=pos.device)
-    idx = torch.searchsorted(pos, k)
-    del pos
-    got = torch.cat([idx, depth[idx].to(torch.int64)]).cpu().numpy()
+    idx, vals = compact_runs(depth, carry if a > 0 else None)
+    got = torch.cat([idx, vals.to(torch.int64)]).cpu().numpy()
+    n = idx.shape[0]
     return got[:n] + a, got[n:]
 
 

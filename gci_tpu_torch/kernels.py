@@ -37,6 +37,8 @@ LAUNCHES = {
     "fused_depth_scan_flags": 0,
     "fused_depth_scan": 0,
     "fused_depth_scan_masked": 0,
+    "compact_flags": 0,
+    "compact_runs": 0,
 }
 
 _lock = threading.Lock()
@@ -95,6 +97,10 @@ _SIGNATURES = {
     "gci_flags_scan": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I, _P],
     "gci_edges_scan": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I, _P],
     "gci_masked_scan": [_P] * 8 + [_I64, _I32, _I32, _I, _P],
+    "gci_compact_flags_count": [_P, ctypes.c_uint32, _I, _P, _I64, _I, _P],
+    "gci_compact_flags_write": [_P, ctypes.c_uint32, _I, _P, _I64, _P, _P, _P, _I, _P],
+    "gci_compact_runs_count": [_P, _I32, _I, _P, _I64, _I, _P],
+    "gci_compact_runs_write": [_P, _I32, _I, _P, _I64, _P, _P, _I, _P],
 }
 
 
@@ -106,9 +112,14 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name in ("gci_scan_tile_slots", "gci_depth_scan_tile_slots"):
+            for name in ("gci_scan_tile_slots", "gci_depth_scan_tile_slots",
+                         "gci_compact_flags_tile_slots", "gci_compact_runs_tile_slots"):
                 getattr(lib, name).restype = ctypes.c_int
                 getattr(lib, name).argtypes = []
+            lib.gci_compact_flags_scratch_words.restype = ctypes.c_int64
+            lib.gci_compact_flags_scratch_words.argtypes = [_I64, _I]
+            lib.gci_compact_runs_scratch_words.restype = ctypes.c_int64
+            lib.gci_compact_runs_scratch_words.argtypes = [_I64]
             lib.gci_cuda_error_string.restype = ctypes.c_char_p
             lib.gci_cuda_error_string.argtypes = [ctypes.c_int]
             for name, argtypes in _SIGNATURES.items():
@@ -156,6 +167,12 @@ def _tile_status(lib: ctypes.CDLL, x: torch.Tensor) -> torch.Tensor:
                        dtype=torch.int64, device=x.device)
 
 
+def _raise_on(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    if rc != 0:
+        msg = lib.gci_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
+
+
 def _launch(name: str, entry: str, delta: torch.Tensor, streams, *scalars,
             alloc_scratch=_tile_sums) -> None:
     """Run C entry ``entry`` over delta's slots: ``streams`` are its tensors
@@ -172,9 +189,7 @@ def _launch(name: str, entry: str, delta: torch.Tensor, streams, *scalars,
         *(t.data_ptr() for t in streams), scratch.data_ptr(), n, *scalars,
         delta.device.index, stream,
     )
-    if rc != 0:
-        msg = lib.gci_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
+    _raise_on(lib, name, rc)
     LAUNCHES[name] += 1
 
 
@@ -251,3 +266,76 @@ def launch_masked_scan(delta: torch.Tensor, gap: torch.Tensor, valid: torch.Tens
     _launch(what, "gci_masked_scan", delta,
             [delta, gap, valid, depth, rise, fall, change], int(lo), int(hi))
     return depth, rise, fall, change
+
+
+def _compact(name: str, x: torch.Tensor, lib: ctypes.CDLL, n_streams: int,
+             tile_slots: int, scratch_words: int, count, write):
+    """The compaction's passes over x: ``count(scratch, stream)`` runs the
+    count and carry passes over the per-tile scratch, the host reads the
+    ``n_streams`` totals (the call's one sync), and ``write(scratch, outs,
+    stream)`` writes the int64 indices into ``outs``, exactly sized, unless
+    every total is 0.  Counts one launch of ``name``; returns ``outs``."""
+    tiles = -(-x.shape[0] // tile_slots)
+    scratch = torch.empty(scratch_words, dtype=torch.int64, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _raise_on(lib, name, count(scratch.data_ptr(), stream))
+    LAUNCHES[name] += 1
+    # per stream a row of tiles + 1 words, its total last
+    totals = scratch[: n_streams * (tiles + 1)].view(n_streams, tiles + 1)[:, -1].tolist()
+    outs = [torch.empty(c, dtype=torch.int64, device=x.device) for c in totals]
+    if any(totals):
+        _raise_on(lib, name, write(scratch.data_ptr(), outs, stream))
+    return outs
+
+
+def launch_compact_flags(x: torch.Tensor, masks) -> list[torch.Tensor]:
+    """Ascending int64 indices of the slots where ``(x & m) != 0``, one
+    tensor per mask (1 to 3 masks, each 1-255), of a 16-byte aligned int8
+    CUDA tensor (``gci_compact_flags_count`` and ``_write``)."""
+    _check_stream(x, "compact_flags", torch.int8, align=16)
+    masks = [int(m) for m in masks]
+    if not 1 <= len(masks) <= 3 or not all(1 <= m <= 255 for m in masks):
+        raise ValueError(f"compact_flags: expected 1 to 3 masks in 1..255, got {masks}")
+    nm, n, dev = len(masks), x.shape[0], x.device.index
+    if n == 0:
+        return [torch.empty(0, dtype=torch.int64, device=x.device) for _ in masks]
+    lib = load()
+    packed = sum(m << (8 * s) for s, m in enumerate(masks))
+
+    def count(scratch, stream):
+        return lib.gci_compact_flags_count(x.data_ptr(), packed, nm, scratch, n, dev, stream)
+
+    def write(scratch, outs, stream):
+        ptrs = [o.data_ptr() for o in outs] + [None] * (3 - nm)
+        return lib.gci_compact_flags_write(x.data_ptr(), packed, nm, scratch, n, *ptrs,
+                                           dev, stream)
+
+    return _compact("compact_flags", x, lib, nm, lib.gci_compact_flags_tile_slots(),
+                    lib.gci_compact_flags_scratch_words(n, nm), count, write)
+
+
+def launch_compact_runs(depth: torch.Tensor, carry: int | None):
+    """(int64 indices, int32 depths) of the run boundaries of a 16-byte
+    aligned int32 CUDA tensor: ``depth[i] != depth[i-1]``, slot 0 against
+    ``carry``, or always a boundary when ``carry`` is None
+    (``gci_compact_runs_count`` and ``_write``)."""
+    _check_stream(depth, "compact_runs", torch.int32)
+    n, dev = depth.shape[0], depth.device.index
+    vals = torch.empty(0, dtype=torch.int32, device=depth.device)
+    if n == 0:
+        return torch.empty(0, dtype=torch.int64, device=depth.device), vals
+    lib = load()
+    has, c = (0, 0) if carry is None else (1, int(carry))
+
+    def count(scratch, stream):
+        return lib.gci_compact_runs_count(depth.data_ptr(), c, has, scratch, n, dev, stream)
+
+    def write(scratch, outs, stream):
+        nonlocal vals
+        vals = torch.empty(outs[0].shape[0], dtype=torch.int32, device=depth.device)
+        return lib.gci_compact_runs_write(depth.data_ptr(), c, has, scratch, n,
+                                          outs[0].data_ptr(), vals.data_ptr(), dev, stream)
+
+    (idx,) = _compact("compact_runs", depth, lib, 1, lib.gci_compact_runs_tile_slots(),
+                      lib.gci_compact_runs_scratch_words(n), count, write)
+    return idx, vals

@@ -400,15 +400,15 @@ def test_device_depth_on_cuda_matches_cpu(rng):
 @pytest.mark.parametrize("n", [1, 4097, 5_000_011])
 @pytest.mark.parametrize("kind", ["empty", "all", "first", "last", "random"])
 def test_compact_on_cuda_matches_nonzero(rng, n, kind):
-    """The compaction on the card (the int8 look-back scan of the bool
-    bitmap, then searchsorted) against torch.nonzero."""
+    """The compaction on the card (the flag form of the compaction kernel
+    on the bool bitmap) against torch.nonzero."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    from gci_tpu_torch.depth.fused import _compact
+    from gci_tpu_torch.depth.scan import compact_flags
 
     cuda = torch.device("cuda", torch.cuda.current_device())
     bits = torch.from_numpy(_bitmap(rng, kind, "bool", n)).to(cuda)
-    got = _compact(bits, int(bits.sum()))
+    (got,) = compact_flags(bits.view(torch.int8), (1,))
     assert torch.equal(got, torch.nonzero(bits).squeeze(1))
 
 

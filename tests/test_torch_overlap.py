@@ -418,8 +418,9 @@ def cuda_device():
 def test_accumulators_on_cuda_match_cpu(rng, cuda_device, sweep_chunk):
     """Both accumulators on the card against the same on the CPU: the
     resident delta slot for slot and its from_delta depth, and the sweep's
-    events, with every sweep chunk scanned by the kernels (K2 and K2 int8
-    once each) and K1 once for from_delta."""
+    events, with every sweep chunk scanned by the kernels (K2 and the run
+    form of the compaction once each) and K1 and the flag form once for
+    from_delta."""
     lens = {"c1": 60000, "c2": 40000}
     layout = GenomeLayout.from_targets(lens)
     names, tid, start, end = _duplicate_reads(rng, lens, n=900, pool=400)
@@ -448,7 +449,9 @@ def test_accumulators_on_cuda_match_cpu(rng, cuda_device, sweep_chunk):
     n = -(-layout.total_slots // sweep_chunk)
     assert kernels.LAUNCHES["fused_depth_scan_packed"] == 1
     assert kernels.LAUNCHES["depth_scan"] == n
-    assert kernels.LAUNCHES["depth_scan_int8"] >= n
+    assert kernels.LAUNCHES["compact_runs"] == n
+    assert kernels.LAUNCHES["compact_flags"] == 1
+    assert kernels.LAUNCHES["depth_scan_int8"] == 0
     assert torch.equal(got_delta, want_delta)
     _assert_events_equal(got_ev, want_ev)
     _assert_events_equal(got_s, want_s)

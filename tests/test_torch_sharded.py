@@ -132,16 +132,30 @@ def test_interval_program_matches_jax(reads, dp, gp):
 @pytest.mark.parametrize("dp,gp", MESHES)
 def test_change_program_matches_jax(reads, dp, gp):
     jmesh, pmesh, pad_total, want_depth, got_depth = _depth_pair(reads, dp, gp)
+    """The run form per shard (the left shard's last value as its carry)
+    against the set slots of the reference's change program, with the
+    depth of each run and at a few offsets."""
     with jmesh:
-        want = jax_device.make_sharded_change_fn(jmesh, pad_total)(want_depth)
-    got = device.sharded_change(pmesh, got_depth)
-    np.testing.assert_array_equal(joined(got).astype(np.int8), np.asarray(want))
+        want = np.asarray(jax_device.make_sharded_change_fn(jmesh, pad_total)(want_depth))
+    shard = pad_total // gp
+    depth = np.asarray(want_depth)
+    rng = np.random.default_rng(0xC4 + gp)
+    offs = {g: np.sort(rng.choice(shard, 3, replace=False)) for g in range(gp)}
+    got = device.sharded_runs(pmesh, got_depth, offs)
+    assert sorted(got) == list(range(gp))
+    for g in range(gp):
+        idx, vals, ovals = got[g]
+        part = slice(g * shard, (g + 1) * shard)
+        np.testing.assert_array_equal(idx, np.flatnonzero(want[part]))
+        np.testing.assert_array_equal(vals, depth[part][idx])
+        np.testing.assert_array_equal(ovals, depth[part][offs[g]])
 
 
 @pytest.mark.parametrize("dp,gp", MESHES)
 def test_compaction_program_matches_jax(reads, dp, gp):
-    """Exact per-shard counts from the compaction's own prefix, against the
-    reference's count program and its power-of-two compaction."""
+    """Exact per-shard counts from the flag form and the run form, against
+    the reference's count program and its power-of-two compaction with its
+    value gather (of the change bitmap, for the run form)."""
     jmesh, pmesh, pad_total, want_depth, got_depth = _depth_pair(reads, dp, gp)
     shard = pad_total // gp
     rng = np.random.default_rng(0xC0 + dp)
@@ -162,21 +176,30 @@ def test_compaction_program_matches_jax(reads, dp, gp):
             loff[g, : own.shape[0]] = own
         w_idx, w_vals, w_ovals = (np.asarray(x) for x in jax_device.make_sharded_compact_gather_fn(
             jmesh, size, k_off)(jnp.asarray(bitmap), want_depth, jnp.asarray(loff)))
-    bits = _gp_shards(pmesh, bitmap != 0)
+        change = jax_device.make_sharded_change_fn(jmesh, pad_total)(want_depth)
+        (c_counts,) = jax_device.make_sharded_count_fn(jmesh, 1)(change)
+        c_size = max(1, 1 << (int(np.asarray(c_counts).max()) - 1).bit_length())
+        c_idx, c_vals, c_ovals = (np.asarray(x) for x in jax_device.make_sharded_compact_gather_fn(
+            jmesh, c_size, k_off)(change, want_depth, jnp.asarray(loff)))
+    # the bitmap as bit 2 of a flag byte whose other bits are noise
+    noise = rng.integers(0, 256, pad_total).astype(np.uint8) & 0b11111011
+    flags = _gp_shards(pmesh, (noise | (bitmap.astype(np.uint8) << 2)).view(np.int8))
+    got = device.sharded_compact_gather(flags, (4,))
     loffs = {g: offsets[o_shard == g] % shard for g in range(gp)}
-    got = device.sharded_compact_gather(pmesh, bits, got_depth, loffs)
-    assert sorted(got) == list(range(gp))
+    runs = device.sharded_runs(pmesh, got_depth, loffs)
+    assert sorted(got) == sorted(runs) == list(range(gp))
     for g in range(gp):
-        idx, vals, ovals = got[g]
+        (idx,) = got[g]
         keep = w_idx[g] >= 0
         assert idx.shape[0] == counts[g]
         np.testing.assert_array_equal(idx, w_idx[g][keep])
-        np.testing.assert_array_equal(vals, w_vals[g][keep])
-        np.testing.assert_array_equal(ovals, w_ovals[g][: loffs[g].shape[0]])
-    idx_only = device.sharded_compact_gather(pmesh, bits)
-    for g in range(gp):
-        np.testing.assert_array_equal(idx_only[g][0], got[g][0])
-        assert idx_only[g][1].shape == idx_only[g][2].shape == (0,)
+        r_idx, r_vals, r_ovals = runs[g]
+        keep = c_idx[g] >= 0
+        assert r_idx.shape[0] == int(np.asarray(c_counts)[g])
+        np.testing.assert_array_equal(r_idx, c_idx[g][keep])
+        np.testing.assert_array_equal(r_vals, c_vals[g][keep])
+        np.testing.assert_array_equal(r_ovals, c_ovals[g][: loffs[g].shape[0]])
+        np.testing.assert_array_equal(r_ovals, w_ovals[g][: loffs[g].shape[0]])
 
 
 # ---------------------------------------------------------------------------
@@ -447,9 +470,11 @@ def test_sharded_depth_on_cuda_matches_cpu(reads, cuda0, dp, gp):
                     a.collapse_dict(-1, 0, 15)))
         if dev == cuda0:
             # per shard: two read sets, the gaps, two scan windows; two
-            # collapses of two edge bitmaps, one change bitmap
+            # collapses (one edge byte each), one run boundary compaction
             assert kernels.LAUNCHES["depth_scan"] == 5 * gp
-            assert kernels.LAUNCHES["depth_scan_int8"] == 5 * gp
+            assert kernels.LAUNCHES["compact_flags"] == 2 * gp
+            assert kernels.LAUNCHES["compact_runs"] == gp
+            assert kernels.LAUNCHES["depth_scan_int8"] == 0
     (d1, e1, c1, a1), (d2, e2, c2, a2) = out
     for t in d2:
         np.testing.assert_array_equal(d1[t], d2[t])

@@ -233,7 +233,8 @@ def cuda_device():
 @pytest.mark.parametrize("chunk_slots", [1000, 4096, 8192, 50_000])
 def test_streamed_on_cuda_matches_cpu(rng, cuda_device, chunk_slots):
     """Events and flat depth on the card equal the CPU run; each chunk runs
-    the int32 scan (its depth) once and the int8 one (its boundaries) once."""
+    the int32 scan (its depth) once and the run form of the compaction (its
+    boundaries) once."""
     layout = GenomeLayout.from_targets(TARGETS)
     tid, start, end = _random_reads(rng, 400)
     want = streamed.events_from_reads_streamed(layout, tid, start, end, 15,
@@ -244,7 +245,8 @@ def test_streamed_on_cuda_matches_cpu(rng, cuda_device, chunk_slots):
     torch.cuda.synchronize()
     n_chunks = -(-layout.total_slots // chunk_slots)
     assert kernels.LAUNCHES["depth_scan"] == n_chunks
-    assert kernels.LAUNCHES["depth_scan_int8"] == n_chunks
+    assert kernels.LAUNCHES["compact_runs"] == n_chunks
+    assert kernels.LAUNCHES["depth_scan_int8"] == 0
     assert kernels.LAUNCHES["fused_depth_scan_packed"] == 0
     _assert_events_equal(got, want, TARGETS)
     np.testing.assert_array_equal(
