@@ -18,10 +18,11 @@ Phases, each printing its results:
    one; the stream compaction in both its forms (flag form: K1's flag byte
    under one and three masks, the change bits as a bool bitmap, dense
    random bytes; run form: K1's depth without, with an equal and with a
-   different carry, an offset slice, dense random depths), exact against
-   the plain versions and on 20 back-to-back launches, timed beside
-   torch.nonzero; and a small DeviceDepth, on the packed and on the flags
-   path, against the numpy depth oracle;
+   different carry, an offset slice, dense random depths, the depth of
+   58x reads), exact against the plain versions, at, past and without a
+   capacity, and on 20 back-to-back launches, each row timed in turns with
+   torch.nonzero (share of bound, ratio); and a small DeviceDepth, on the
+   packed and on the flags path, against the numpy depth oracle;
 4. the public entries of the two kernels no CLI path runs:
    ``depth.device.depth_and_edges_fused`` (fused_depth_scan) and
    ``depth.scan.fused_depth_scan_masked``, at MH63 size, each checked
@@ -96,7 +97,8 @@ Launch counts are set to 0 just before each path of phases 4 to 9 runs and
 read just after, and each path of phases 4 to 6, 8 and 9 must have launched
 exactly the kernels counted from its code (``PATH_LAUNCHES``,
 ``check_streamed_launches``, ``OVERLAP_CASES``, ``SHARDED_SCANS_PER_SHARD``):
-K2's int8 form none on any path.  The script prints one JSON line with each
+K2's int8 form none on any path, and no compaction relaunched past its
+caller's capacity.  The script prints one JSON line with each
 kernel's launches on its path and on every path, error, times and bound,
 then as its last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and exits nonzero; so does a machine without CUDA.  Inputs are
@@ -104,6 +106,7 @@ generated from a seed in a temporary directory that is removed at the end.
 """
 from __future__ import annotations
 
+import gc
 import gzip
 import json
 import os
@@ -167,8 +170,13 @@ CHROM_WEIGHTS = [43.3, 35.9, 36.4, 35.5, 29.9, 31.2, 29.7, 28.4, 23.0, 23.2, 31.
 N_HIFI, HIFI_MEAN, HIFI_SD = 200_000, 18_000, 4_000
 N_ONT, ONT_MEAN, ONT_SD = 100_000, 25_000, 10_000
 TIMED_RUNS = 5
+COMPACTION_TIMED_RUNS = 21  # the compaction rows: calls of 0.1-1 ms, host-bound at small sizes
 REPEATED_LAUNCHES = 20  # of each depth_scan and compaction form on one input
 DENSE_SLOTS = 10_000_019  # the compaction's dense cases: no tile multiple
+# the compaction's real-depth case: reads at 58x over the MH63-sized genome
+# (synthetic_reads' spans average 20.5 kb), about one run boundary per 177
+# slots, as at a 58x human genome
+REAL_DEPTH_READS = 1_120_000
 PREFIX = "MH63"
 # phase 6a: 4 chunks of the MH63-shaped genome, borders away from chromosome
 # starts
@@ -294,8 +302,37 @@ def check(cond: bool, what: str) -> None:
 
 
 def median_ms(fn, runs: int = TIMED_RUNS) -> float:
+    """The median CUDA-event time of ``runs`` calls of fn after one warm-up,
+    Python's garbage collector paused (a pass over a large heap is
+    milliseconds of host time inside a call)."""
     fn()
     torch.cuda.synchronize()
+    gc.disable()
+    try:
+        return _median_ms(fn, runs)
+    finally:
+        gc.enable()
+
+
+def median_ms_in_turns(fn_a, fn_b, runs: int) -> tuple[float, float]:
+    """The median CUDA-event times of fn_a and fn_b, timed in turns (a b, b
+    a, ...) after one warm-up each, the garbage collector paused, so drifts
+    of the host or the card fall on both alike."""
+    fn_a()
+    fn_b()
+    torch.cuda.synchronize()
+    times = ([], [])
+    gc.disable()
+    try:
+        for k in range(runs):
+            for j in ((0, 1) if k % 2 == 0 else (1, 0)):
+                times[j].append(_median_ms((fn_a, fn_b)[j], 1))
+    finally:
+        gc.enable()
+    return tuple(sorted(t)[len(t) // 2] for t in times)
+
+
+def _median_ms(fn, runs: int) -> float:
     times = []
     for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
@@ -624,71 +661,173 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
     return rows
 
 
-def phase_compaction(dev: torch.device, depth: torch.Tensor, flags: torch.Tensor):
-    """Both forms of the stream compaction against their plain versions on
-    K1's outputs at MH63 size and on dense random inputs, on repeated
-    launches, and beside torch.nonzero."""
+def compaction_inputs(dev: torch.device, depth=None, flags=None) -> dict:
+    """The compaction's timed inputs, key -> (input, args after it, capacity):
+    K1's change bits under one mask, its flag byte under masks (1, 2, 4) and
+    its depth at MH63 size (built here unless given; capacity the code's
+    bound, the scatter rows plus one), the depth of REAL_DEPTH_READS reads
+    (the same bound), and DENSE_SLOTS random bytes and depths (their exact
+    counts)."""
+    lengths = chrom_lengths()
+    layout = GenomeLayout.from_targets(lengths)
+    gaps = gap_runs(lengths)
+    if depth is None:
+        tid, start, end = synthetic_reads(np.random.default_rng(SEED + 1), layout)
+        depth, flags = fused_depth_scan_packed(
+            packed_event_word(layout, tid, start, end, 15, gaps, dev), -1, 0)
+    cap = fused._event_rows(layout, N_HIFI, gaps, 15) + 1
+    tid, start, end = synthetic_reads(np.random.default_rng(SEED + 9), layout,
+                                      REAL_DEPTH_READS)
+    real = depth_scan(read_delta(layout, tid, start, end, dev))
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 7)
-    rows = {}
-    change = (flags & 4) != 0  # K1's change bits (forced at slot 0)
-    bits = change.view(torch.int8)
-    # about half of random bytes have bit 7 set; 0x7F leaves 0 and -128 clear
+    # about half of random bytes have bit 7 set, and 2/3 of random depths
+    # in 0..2 differ from the one before
     dense = torch.randint(-128, 128, (DENSE_SLOTS,), dtype=torch.int32, device=dev,
                           generator=g).to(torch.int8)
-    ones = torch.ones(DENSE_SLOTS, dtype=torch.int8, device=dev)
-    rows["compact_flags"] = hold(
-        "compact_flags", compact_flags, compact_flags_torch,
-        [(flags, (1, 2, 4)), (bits, (1,)), (flags, (8, 3)), (dense, (0x80, 0x7F, 0xFF)),
-         (dense[4096:], (0x40,)), (dense[:1], (1, 2)), (ones, (1,)), (ones, (2,))],
-        (bits, (1,)),
-    )
-    hold_repeats("compact_flags", flags, compact_flags, compact_flags_torch, (1, 2, 4))
-    three_ms = median_ms(lambda: compact_flags(flags, (1, 2, 4)))
-    three_plain_ms = median_ms(lambda: compact_flags_torch(flags, (1, 2, 4)))
-    masked = [(flags & m) != 0 for m in (1, 2, 4)]
-    three_nz_ms = median_ms(lambda: [torch.nonzero(b) for b in masked])
-    counts = [int(b.sum()) for b in masked]
-    # dense bytes: every tile past the slots its scratch keeps, so read twice
-    dense_ms = median_ms(lambda: compact_flags(dense, (0x80,)))
-    dense_nz = dense.view(torch.uint8) >= 0x80
-    dense_nz_ms = median_ms(lambda: torch.nonzero(dense_nz))
-    log(f"[kernels] compact_flags of {DENSE_SLOTS} random bytes under mask 0x80 "
-        f"({int(dense_nz.sum())} set): {dense_ms:.4f} ms, torch.nonzero {dense_nz_ms:.4f} ms")
-    del masked, dense, ones, dense_nz
-    log(f"[kernels] compact_flags of K1's flag byte under masks (1, 2, 4), "
-        f"{counts} set: {three_ms:.4f} ms vs plain {three_plain_ms:.4f} ms; "
-        f"torch.nonzero of the three precomputed bitmaps {three_nz_ms:.4f} ms")
-    rows["compact_flags"]["three_masks"] = dict(ms=three_ms, plain_ms=three_plain_ms,
-                                                nonzero_ms=three_nz_ms, counts=counts)
-
     runs = torch.randint(0, 3, (DENSE_SLOTS,), dtype=torch.int32, device=dev, generator=g)
+    inputs = {
+        "one_mask": (((flags & 4) != 0).view(torch.int8), ((1,),), cap),
+        "three_masks": (flags, ((1, 2, 4),), cap),
+        "runs": (depth, (None,), cap),
+        "real_depth_runs": (real, (None,), 2 * REAL_DEPTH_READS + 1),
+        "dense_flags": (dense, ((0x80,),), None),
+        "dense_runs": (runs, (None,), None),
+    }
+    for key in ("dense_flags", "dense_runs"):
+        x, args, _ = inputs[key]
+        inputs[key] = (x, args, max(o.shape[0] for o in _plain(x)(x, *args)[:1]))
+    return inputs
+
+
+def _kernel(x: torch.Tensor):
+    return compact_flags if x.dtype == torch.int8 else compact_runs
+
+
+def _plain(x: torch.Tensor):
+    """The plain version of x's form, taking (and ignoring) a capacity."""
+    if x.dtype == torch.int8:
+        return lambda x, masks, capacity=None: compact_flags_torch(x, masks)
+    return lambda x, carry, capacity=None: compact_runs_torch(x, carry)
+
+
+def nonzero_calls(inputs: dict) -> dict:
+    """key -> the torch.nonzero yardstick of each input, as the compaction's
+    earlier rows were timed: torch.nonzero of ready bool
+    bitmaps (one per mask, or a depth's run boundaries), except on dense
+    depths, where the bitmap ``depth[1:] != depth[:-1]`` is built in the
+    timed call."""
+    out = {}
+    for key, (x, args, _) in inputs.items():
+        if key == "dense_runs":
+            out[key] = lambda x=x: torch.nonzero(x[1:] != x[:-1])
+            continue
+        if x.dtype == torch.int8:
+            bitmaps = [(x.view(torch.uint8) & m) != 0 for m in args[0]]
+        else:
+            change = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+            torch.ne(x[1:], x[:-1], out=change[1:])
+            bitmaps = [change]
+        out[key] = lambda bitmaps=bitmaps: [torch.nonzero(b) for b in bitmaps]
+    return out
+
+
+def compaction_row(key: str, x, args, cap, nonzero) -> dict:
+    """The kernel's median ms on one input and torch.nonzero's on the same
+    function, timed in turns, its bound (each input byte read once, 8 B per index and 4 per
+    run depth written once) and share of it, and the ratio to
+    torch.nonzero."""
+    name = "compact_flags" if x.dtype == torch.int8 else "compact_runs"
+    kernel = _kernel(x)
+    ms, nz_ms = median_ms_in_turns(lambda: kernel(x, *args, cap), nonzero,
+                                   COMPACTION_TIMED_RUNS)
+    outs = _plain(x)(x, *args)
+    _, _, n_bytes, n_ops, _ = KERNEL_ROWS[name]
+    bound_ms = max(n_bytes((x, *args), outs) / PEAK_BYTES_PER_S,
+                   n_ops((x, *args), outs) / PEAK_OPS_PER_S) * 1e3
+    counts = [o.shape[0] for o in (outs if name == "compact_flags" else outs[:1])]
+    row = dict(ms=ms, nonzero_ms=nz_ms, ratio_to_nonzero=ms / nz_ms, bound_ms=bound_ms,
+               share_of_bound=bound_ms / ms, slots=x.shape[0], counts=counts)
+    log(f"[kernels] {name} {key} ({x.shape[0]} slots, {counts} set): {ms:.4f} ms, "
+        f"{100 * bound_ms / ms:.1f}% of its bound {bound_ms:.4f} ms; torch.nonzero "
+        f"{nz_ms:.4f} ms, ratio {ms / nz_ms:.3f}")
+    return row
+
+
+def phase_compaction(dev: torch.device, depth: torch.Tensor, flags: torch.Tensor):
+    """Both forms of the stream compaction against their plain versions on
+    K1's outputs at MH63 size, at real read depth and on dense random
+    inputs, at, past and without a capacity, on repeated launches, and
+    timed beside torch.nonzero."""
+    inputs = compaction_inputs(dev, depth, flags)
+    nonzero = nonzero_calls(inputs)
+    rows = {}
+    bits, _, cap = inputs["one_mask"]
+    dense, ones = inputs["dense_flags"][0], torch.ones(DENSE_SLOTS, dtype=torch.int8, device=dev)
+    plain_flags = _plain(bits)
+    # capacities: K1's bound, and each other case's largest count exactly
+    cases = [(flags, (1, 2, 4), cap), (bits, (1,), cap), (flags, (8, 3), None),
+             (dense, (0x80, 0x7F, 0xFF), None), (dense[4096:], (0x40,), None),
+             (dense[:1], (1, 2), None), (ones, (1,), None), (ones, (2,), None),
+             (flags[: 3 * 16384 + 5], (1, 2, 4), None)]
+    cases = [(x, m, c if c is not None else max(o.shape[0] for o in plain_flags(x, m)))
+             for x, m, c in cases]
+    rows["compact_flags"] = hold("compact_flags", compact_flags, plain_flags, cases,
+                                 (bits, (1,), cap))
+    hold_repeats("compact_flags", flags, compact_flags, plain_flags, (1, 2, 4), cap)
+    runs = inputs["dense_runs"][0]
+    plain_runs = _plain(runs)
     d0 = int(depth[0])
-    rows["compact_runs"] = hold(
-        "compact_runs", compact_runs, compact_runs_torch,
-        [(depth, None), (depth, d0), (depth, d0 + 1), (depth[4096:], int(depth[4095])),
-         (runs, None), (runs, 1), (runs[:1], 5), (torch.full_like(runs, 7), 7)],
-        (depth, None),
-    )
-    hold_repeats("compact_runs", depth, compact_runs, compact_runs_torch, None)
-    dense_ms = median_ms(lambda: compact_runs(runs))
-    dense_nz_ms = median_ms(lambda: torch.nonzero(runs[1:] != runs[:-1]))
-    log(f"[kernels] compact_runs of {DENSE_SLOTS} random depths in 0..2: {dense_ms:.4f} "
-        f"ms, torch.nonzero(depth[1:] != depth[:-1]) {dense_nz_ms:.4f} ms")
-    check(torch.equal(compact_runs(depth)[0], compact_flags(flags, (4,))[0]),
+    cases = [(depth, None, cap), (depth, d0, cap), (depth, d0 + 1, cap),
+             (depth[4096:], int(depth[4095]), cap), (runs, None, None), (runs, 1, None),
+             (runs[:1], 5, None), (torch.full_like(runs, 7), 7, None),
+             (inputs["real_depth_runs"][0], None, inputs["real_depth_runs"][2])]
+    cases = [(x, c, k if k is not None else plain_runs(x, c)[0].shape[0]) for x, c, k in cases]
+    rows["compact_runs"] = hold("compact_runs", compact_runs, plain_runs, cases,
+                                (depth, None, cap))
+    hold_repeats("compact_runs", depth, compact_runs, plain_runs, None, cap)
+    hold_capacities(inputs)
+    check(torch.equal(compact_runs(depth, None, cap)[0], compact_flags(flags, (4,), cap)[0]),
           "the run form of K1's depth != the flag form of its change bits")
-    nz_ms = median_ms(lambda: torch.nonzero(change))
+    relaunched = dict(kernels.RELAUNCHES)
+    for key, (x, args, c) in inputs.items():
+        row = compaction_row(key, x, args, c, nonzero[key])
+        name = "compact_flags" if x.dtype == torch.int8 else "compact_runs"
+        if key in ("one_mask", "runs"):
+            rows[name].update(row)
+        else:
+            rows[name][key] = row
+    check(kernels.RELAUNCHES == relaunched,
+          f"the compaction relaunched within its capacities: {kernels.RELAUNCHES}")
     # torch.nonzero from the depth itself: the bitmap's build counts too
-    nz_depth_ms = median_ms(lambda: torch.nonzero(depth[1:] != depth[:-1]))
-    log(f"[kernels] compact_runs of K1's depth: {rows['compact_runs']['ms']:.4f} ms, "
-        f"compact_flags of its change bits: {rows['compact_flags']['ms']:.4f} ms; "
-        f"torch.nonzero of the change bits {nz_ms:.4f} ms, of depth[1:] != depth[:-1] "
-        f"{nz_depth_ms:.4f} ms")
-    rows["compact_runs"]["nonzero_ms"] = nz_ms
-    rows["compact_runs"]["nonzero_of_depth_ms"] = nz_depth_ms
-    rows["compact_flags"]["nonzero_ms"] = rows["compact_flags"]["library_ms"]
-    del change, bits, runs
+    rows["compact_runs"]["nonzero_of_depth_ms"] = median_ms(
+        lambda: torch.nonzero(depth[1:] != depth[:-1]))
+    del inputs, nonzero, bits, dense, ones, runs
+    torch.cuda.empty_cache()
     return rows
+
+
+def hold_capacities(inputs: dict) -> None:
+    """Each timed input with its count exactly at capacity (one launch), one
+    past it (the kernel's writes stop there, then one exact relaunch) and
+    without one (a counting launch, then the exact one); every result equal
+    to the plain version's."""
+    for key, (x, args, _) in inputs.items():
+        name = "compact_flags" if x.dtype == torch.int8 else "compact_runs"
+        want = _plain(x)(x, *args)
+        top = max(w.shape[0] for w in (want if name == "compact_flags" else want[:1]))
+        check(top > 0, f"{name} {key}: no slot set")
+        for cap, launches, relaunches in ((top, 1, 0), (top - 1, 2, 1), (None, 2, 1)):
+            before, again = kernels.LAUNCHES[name], kernels.RELAUNCHES[name]
+            got = _kernel(x)(x, *args, cap)
+            torch.cuda.synchronize()
+            check(_equal(got, want), f"{name} {key} at capacity {cap} != plain")
+            check(kernels.LAUNCHES[name] - before == launches
+                  and kernels.RELAUNCHES[name] - again == relaunches,
+                  f"{name} {key} at capacity {cap}: {kernels.LAUNCHES[name] - before} "
+                  f"launches, {kernels.RELAUNCHES[name] - again} relaunches")
+        log(f"[kernels] {name} {key}: exact at capacity {top}, at {top - 1} (relaunched) "
+            "and without one (counted, then launched)")
 
 
 def phase_small_oracle(dev: torch.device) -> None:
@@ -789,6 +928,12 @@ def check_same_outputs(dir1: str, dir2: str, prefix: str, what: str) -> None:
               f"{name}: {what} differs from --device events")
 
 
+def check_no_relaunch(label: str) -> None:
+    """Every compaction of the path fit the capacity its caller gave."""
+    check(not any(kernels.RELAUNCHES.values()),
+          f"{label}: the compaction relaunched past its caller's bound {kernels.RELAUNCHES}")
+
+
 def run_cli(paths, out_dir: str, backend: str, prefix: str = PREFIX) -> tuple[float, list]:
     get_metrics().reset()
     t0 = time.perf_counter()
@@ -815,10 +960,12 @@ def run_device_path(paths, out_dir: str, backend: str, path: str, label: str,
     wall, stages = run_cli(paths, out_dir, backend, prefix)
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    check_no_relaunch(label)
     if path in PATH_LAUNCHES:
         want = {name: PATH_LAUNCHES[path].get(name, 0) for name in launches}
         check(launches == want, f"{label}: launches {launches}, expected {want}")
-    log(f"{label}: --device {backend} run {wall:.3f} s; launches {launches}")
+    log(f"{label}: --device {backend} run {wall:.3f} s; launches {launches}, "
+        f"relaunches {kernels.RELAUNCHES}")
     log(f"{label}: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB; "
         f"{before} bytes allocated before the run)")
     log(f"{label}: stages " + json.dumps(stages))
@@ -1170,7 +1317,7 @@ def overlap_on(case, layout, bam: str, gaps, chunk_bytes: int, dev, ckpt: str) -
         finalized = getattr(acc, "frontier", 0)
         if case["acc"] == "delta":
             depths = DeviceDepth.from_delta(layout, acc.take_delta(), 15, gaps=gaps,
-                                            issue_range=(-1, 0))
+                                            issue_range=(-1, 0), rows=acc.rows)
             depths.to_events()
         else:
             depths = acc.finish()
@@ -1236,12 +1383,14 @@ def phase_overlap(inputs, dev) -> dict[str, dict[str, int]]:
                           f"{label}: the {typ} overlap checkpoint differs from the events run")
                 torch.cuda.synchronize()
                 counts = dict(kernels.LAUNCHES)
+                check_no_relaunch(label)
                 for typ, name in (("hifi", "hifi"), ("ont", "nano")):
                     runs["off"][typ] = overlap_off(case, paths[typ], gaps, typ, dev, out,
                                                    f"off_{name}")
                     check(_same_file(os.path.join(out, f"off_{name}.depth.gz"),
                                      os.path.join(events_dir, f"{prefix}_{name}.depth.gz")),
                           f"{label}: the {typ} run_filter checkpoint differs from the events run")
+                check_no_relaunch(f"{label}, run_filter")
             shutil.rmtree(out)
             first = chunk_bytes == case["bam_chunk_bytes"][0]
             for typ, r in runs["on"].items():
@@ -1299,6 +1448,7 @@ def run_sharded(label: str, gp: int, out_dir: str, events_dir: str, call) -> dic
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    check_no_relaunch(label)
     want = {name: SHARDED_SCANS_PER_SHARD.get(name, 0) * gp for name in launches}
     check(launches == want, f"{label}: launches {launches}, expected {want}")
     check_same_outputs(out_dir, events_dir, PREFIX, f"--device sharded ({label})")

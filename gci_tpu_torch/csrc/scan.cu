@@ -363,18 +363,39 @@ __device__ __forceinline__ void load_scan_cols(const int8_t* __restrict__ in,
   }
 }
 
+// A status word holds its state from bit kShift up and a V value below it:
+// depth_scan's uint32 sums (state in the high half), the compaction's
+// 64-bit counts (state in the top two bits).
+template <typename V>
+struct StatusWord {
+  static constexpr int kShift = sizeof(V) == 4 ? 32 : 62;
+  static constexpr unsigned long long kValueMask = (1ull << kShift) - 1ull;
+};
+
 // One 64-bit store of (state, value), ordered after every earlier write of
-// the thread.
+// the thread; kRelaxed: unordered, for readers that need the word alone (an
+// acquire load holds back every later load, and a release store waits for
+// every earlier store).
+template <bool kRelaxed = false, typename V>
 __device__ __forceinline__ void publish(unsigned long long* word,
-                                        unsigned long long state,
-                                        uint32_t value) {
-  const unsigned long long w = (state << 32) | value;
-  asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(word), "l"(w) : "memory");
+                                        unsigned long long state, V value) {
+  const unsigned long long w =
+      (state << StatusWord<V>::kShift) | static_cast<unsigned long long>(value);
+  if (kRelaxed) {
+    asm volatile("st.relaxed.gpu.u64 [%0], %1;" ::"l"(word), "l"(w) : "memory");
+  } else {
+    asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(word), "l"(w) : "memory");
+  }
 }
 
+template <bool kRelaxed = false>
 __device__ __forceinline__ unsigned long long observe(const unsigned long long* word) {
   unsigned long long w;
-  asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(w) : "l"(word) : "memory");
+  if (kRelaxed) {
+    asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(w) : "l"(word) : "memory");
+  } else {
+    asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(w) : "l"(word) : "memory");
+  }
   return w;
 }
 
@@ -383,24 +404,25 @@ __device__ __forceinline__ unsigned long long observe(const unsigned long long* 
 // warp sums the words up to the nearest inclusive prefix, re-reading any
 // of those still invalid until its tile has published; it never waits on a
 // word past that prefix.  Returned in every lane.
-__device__ __forceinline__ uint32_t look_back(const unsigned long long* status,
-                                              int64_t tile) {
+template <typename V, bool kRelaxed = false>
+__device__ __forceinline__ V look_back(const unsigned long long* status, int64_t tile) {
+  constexpr int kShift = StatusWord<V>::kShift;
   const int lane = threadIdx.x & 31;
-  uint32_t exclusive = 0;
+  V exclusive = 0;
   for (int64_t pred = tile - 1;; pred -= 32) {
     const int64_t idx = pred - lane;
     // before tile 0 there is nothing: an inclusive prefix of 0
-    unsigned long long w = idx >= 0 ? observe(status + idx) : kTileInclusive << 32;
+    unsigned long long w = idx >= 0 ? observe<kRelaxed>(status + idx) : kTileInclusive << kShift;
     unsigned inclusive;
     int last;
     while (true) {
-      inclusive = __ballot_sync(kFull, (w >> 32) == kTileInclusive);
+      inclusive = __ballot_sync(kFull, (w >> kShift) == kTileInclusive);
       last = inclusive ? __ffs(inclusive) - 1 : 31;
-      const bool waiting = lane <= last && (w >> 32) == 0;
+      const bool waiting = lane <= last && (w >> kShift) == 0;
       if (!__any_sync(kFull, waiting)) break;
-      if (waiting) w = observe(status + idx);
+      if (waiting) w = observe<kRelaxed>(status + idx);
     }
-    uint32_t v = lane <= last ? static_cast<uint32_t>(w) : 0u;
+    V v = lane <= last ? static_cast<V>(w & StatusWord<V>::kValueMask) : V(0);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
     exclusive += v;
@@ -465,7 +487,7 @@ lookback_scan_kernel(const T* __restrict__ in, int32_t* __restrict__ out,
       }
     } else {
       if (lane == 0) publish(status + tile, kTileAggregate, total);
-      const uint32_t exclusive = look_back(status, tile);
+      const uint32_t exclusive = look_back<uint32_t>(status, tile);
       if (lane == 0) {
         publish(status + tile, kTileInclusive, exclusive + total);
         tile_exclusive = exclusive;
@@ -683,7 +705,7 @@ edges_scan_tiles_kernel(const int32_t* __restrict__ delta,
 // _compact_pack_fn and _flag_compact_pack_fn, gci_tpu/depth/device.py
 // make_sharded_compact_gather_fn): the ascending indices of the slots where
 // a predicate holds, with their exact count, for up to three predicates in
-// one call.  Two forms, each a template instance of the same kernels:
+// one call.  Two forms, each a template instance of compact_kernel:
 //
 //   * flag form: one int8 stream x and up to three bit masks m; the
 //     predicate is (x & m) != 0;
@@ -693,45 +715,82 @@ edges_scan_tiles_kernel(const int32_t* __restrict__ delta,
 //
 // Bound by device-memory bytes: 1 B/slot in for the flag form, 4 for the
 // run form, plus 8 B (index) or 12 B (index and depth) per set slot out.
-// The outputs are exactly sized, so their size must be known before they
-// are written, and the caller learns it in one host sync:
+// One launch reads the input once:
 //
-//   1. compact_count_kernel  one block per tile ranks each predicate's set
-//                            slots and writes the tile's count; when the
-//                            tile holds at most kCache of them, it keeps
-//                            their tile-local offsets (and, run form, their
-//                            depths) in the tile's own scratch;
-//   2. compact_carry_kernel  one block per predicate scans the tile counts
-//                            into exclusive offsets, in place, and writes
-//                            the total after them; the host reads the
-//                            totals and allocates the outputs;
-//   3. compact_write_kernel  one block per tile copies its kept entries to
-//                            its offset; a tile that held more than kCache
-//                            set slots re-reads its input and ranks again.
+//   * persistent blocks, as many as fit on the card, launched cooperatively
+//     so that all of them run at once; block b takes tiles of
+//     Form::kTileBytes b, b + G, b + 2G, ... (G blocks).  Thread 0 keeps
+//     the block's next kCompactStages - 1 tiles in flight into a
+//     shared-memory ring by 1-D bulk copies (cp.async.bulk, completion on an
+//     mbarrier): the loads hold no registers and stay in flight while the
+//     block ranks its tile and waits on its look-back.  The last, partial
+//     tile is loaded by the block itself and padded with slots that set no
+//     predicate.  (Tiles claimed from an atomic counter, as depth_scan
+//     takes them, were slower with a ring: a tile claimed into the back of
+//     one block's ring is ranked a few tiles later, and its successors,
+//     claimed by other blocks, wait for it);
+//   * each warp counts its columns' set slots per predicate (keeping their
+//     bits in registers), the warps' counts are summed, and warp s
+//     publishes the tile's count of predicate s one tile ahead: the block
+//     counts tile k + 1 before it takes tile k's exclusive offset from its
+//     predecessors' status words (depth_scan's decoupled look-back, one row
+//     of status words per predicate, the rows walked by different warps at
+//     once; the words carry their values, so loads and stores are relaxed).
+//     Every block runs and ranks its tiles in order, so the lowest tile not
+//     yet ranked never waits;
+//   * each set slot's index (and depth) is stored at its place in the
+//     output.  There is no per-tile cache and no per-slot scratch.
 //
-// So the input is read once where set slots are sparser than one in
-// kTileSlots / kCache (1/128 for both forms; MH63's depth has one run
-// boundary per ~1,000 slots, a 58x human one about one per 170), and twice
-// in the tiles past that.  Scratch is per tile only: a 64-bit count and
-// kCache 16-bit offsets (run form: and kCache depths) per tile and
-// predicate, about 0.05 B per slot; no per-slot buffer, no prefix.
+// The caller gives the outputs' capacity: a slot ranked at or past it is not
+// stored.  The block of the last tile writes the exact totals after the
+// status rows, and the C entry copies them to the host and synchronizes the
+// stream (the call's one host sync); the caller launches once more at the
+// exact size if a total exceeds the capacity.
 //
-// Each warp owns kCompactCols consecutive columns of its tile, and lane l
-// loads the 16 bytes at 16 l of each column, so a warp access is one
-// contiguous 512-byte block.  A lane's slots become one bit each (the flag
-// form tests four bytes per word at once).  A set slot's rank in its warp is
-// the popcount of its lane's bits below it plus the set slots of the lanes
-// before it, which a bit-sliced ballot gives: bit b of the lanes' counts is
-// one __ballot_sync, of which the lanes before lane l hold
-// popc(ballot & lanemask_lt) << b.  Across the warps of a tile, a
-// shared-memory scan of the warp totals.  Each column's set slots are staged
-// in shared memory at their ranks and then written by consecutive lanes, so
-// a dense column's indices leave as contiguous stores, not one lane's run
-// after another.
+// Ranking.  A warp column is 512 bytes, 16 of them a lane (16 flag bytes or
+// 4 depths), so every warp access is one contiguous block.  A lane's slots
+// become one bit each per predicate, and its counts (at most 16) are packed
+// kCountBits a predicate into one word: one warp inclusive scan
+// (__shfl_up_sync) ranks every predicate at once, and a column's total stays
+// below 2^kCountBits.  A column empty under every predicate is skipped after
+// one __any_sync.  Each column's set slots are staged in shared memory at
+// their ranks and stored by consecutive lanes, so a dense column's indices
+// leave as contiguous stores.
+
+// Each form's tile bytes and the blocks a SM must hold (which caps the
+// registers: 64 a thread at 4 blocks, 128 at 2), and the ring's slots: the
+// faster of the shapes timed on the H100 (PERF.md).
+constexpr int kFlagTileBytes = 16384, kRunTileBytes = 32768;
+constexpr int kFlagMinBlocks = 4, kRunMinBlocks = 2;
+constexpr int kCompactStages = 3;
 
 constexpr int kCompactThreads = 256;
 constexpr int kCompactWarps = kCompactThreads / 32;
-constexpr int kCompactCols = 8;
+constexpr int kCompactColBytes = 512;  // a warp column: 16 bytes a lane
+constexpr int kCountBits = 10;         // a predicate's field of a packed count
+constexpr uint32_t kCountMask = (1u << kCountBits) - 1u;
+static_assert(kCompactStages >= 2, "the ring holds the tile ranked and the next, counted");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Bits 0-3: bit 0 of each of the four bytes of w.
+__device__ __forceinline__ uint32_t byte_bits(uint32_t w) {
+  // bits 0, 8, 16, 24 gathered into bits 28-31
+  return ((w & 0x01010101u) * 0x10204080u) >> 28;
+}
 
 // Bits 0-3: whether byte k of (w & mrep) is nonzero, for the four bytes of w.
 __device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w, uint32_t mrep) {
@@ -739,405 +798,345 @@ __device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w, uint32_t mrep) {
   // bit 7 of each byte: its low seven bits nonzero (no carry leaves a
   // byte: 0x7F + 0x7F < 0x100), or its own bit 7
   const uint32_t hi = (((t & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | t) & 0x80808080u;
-  // bits 0, 8, 16, 24 gathered into bits 28-31
-  return ((hi >> 7) * 0x10204080u) >> 28;
+  return byte_bits(hi >> 7);
 }
 
-// Flag form over NS masks (byte s of `masks` is stream s's mask, 1-255).
+// Flag form over NS masks (byte s of `masks` is predicate s's mask, 1-255).
 template <int NS>
 struct FlagForm {
+  using Elem = int8_t;
+  static constexpr int kTileBytes = kFlagTileBytes;
+  static constexpr int kMinBlocks = kFlagMinBlocks;
   static constexpr int kStreams = NS;
-  static constexpr int kLaneSlots = 16;  // one 16-byte load per column
-  static constexpr int kCountBits = 5;   // a lane's count is 0..16
-  static constexpr int kColSlots = 32 * kLaneSlots;
-  static constexpr int kWarpSlots = kCompactCols * kColSlots;
-  static constexpr int kTileSlots = kCompactWarps * kWarpSlots;
-  static constexpr int kCache = 256;
   static constexpr bool kValues = false;
-  struct Vals {};
 
-  const int8_t* x;
+  const int8_t* in;
   uint32_t masks;
 
-  // bits[c][s]: bit j is slot warp_first + kColSlots * c + 16 * lane + j
-  // under mask s; slots at or past n are clear.
-  __device__ __forceinline__ void load(int64_t warp_first, int64_t n,
-                                       uint32_t (&bits)[kCompactCols][NS],
-                                       Vals&) const {
-    const int lane = threadIdx.x & 31;
-    uint4 w[kCompactCols];
-    if (warp_first + kWarpSlots <= n) {
-#pragma unroll
-      for (int c = 0; c < kCompactCols; ++c) {
-        w[c] = __ldg(reinterpret_cast<const uint4*>(x + warp_first + kColSlots * c + 16 * lane));
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < kCompactCols; ++c) {
-        const int64_t first = warp_first + kColSlots * c + 16 * lane;
-        uint32_t b[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          if (first + j < n) {
-            b[j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(x[first + j]))
-                         << (8 * (j & 3));
-          }
-        }
-        w[c] = make_uint4(b[0], b[1], b[2], b[3]);
-      }
-    }
+  // What pads the last tile past n: no flag.
+  __device__ __forceinline__ int8_t pad(int64_t) const { return 0; }
+  __device__ __forceinline__ uint32_t before(const int8_t*, int64_t) const { return 0u; }
+
+  // b[s]: bit j is slot first + j (tile-local) under mask s.  The whole
+  // warp calls it.
+  __device__ __forceinline__ void bits(const int8_t* tile, int first, uint32_t,
+                                       uint32_t (&b)[NS]) const {
+    const uint4 w = *reinterpret_cast<const uint4*>(tile + first);
+    const uint32_t any = ((masks | masks >> 8 | masks >> 16) & 0xFFu) * 0x01010101u;
+    const bool maybe = ((w.x | w.y | w.z | w.w) & any) != 0u;
+    const bool column = __any_sync(kFull, maybe);
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
-      const uint32_t mrep = ((masks >> (8 * s)) & 0xFFu) * 0x01010101u;
-#pragma unroll
-      for (int c = 0; c < kCompactCols; ++c) {
-        bits[c][s] = nonzero_bytes(w[c].x, mrep) | (nonzero_bytes(w[c].y, mrep) << 4) |
-                     (nonzero_bytes(w[c].z, mrep) << 8) | (nonzero_bytes(w[c].w, mrep) << 12);
+      const uint32_t m = (masks >> (8 * s)) & 0xFFu;
+      if (!column) {
+        b[s] = 0u;
+      } else if ((m & (m - 1u)) == 0u) {
+        // one bit (every mask of the main path): shift it to each byte's bit 0
+        const int sh = __ffs(m) - 1;
+        b[s] = byte_bits(w.x >> sh) | (byte_bits(w.y >> sh) << 4) |
+               (byte_bits(w.z >> sh) << 8) | (byte_bits(w.w >> sh) << 12);
+      } else {
+        const uint32_t mrep = m * 0x01010101u;
+        b[s] = nonzero_bytes(w.x, mrep) | (nonzero_bytes(w.y, mrep) << 4) |
+               (nonzero_bytes(w.z, mrep) << 8) | (nonzero_bytes(w.w, mrep) << 12);
       }
     }
   }
-
-  __device__ __forceinline__ static int32_t value(const Vals&, int, int) { return 0; }
 };
 
 // Run form: the run boundaries of an int32 depth.
 struct RunForm {
+  using Elem = int32_t;
+  static constexpr int kTileBytes = kRunTileBytes;
+  static constexpr int kMinBlocks = kRunMinBlocks;
   static constexpr int kStreams = 1;
-  static constexpr int kLaneSlots = 4;  // one 16-byte load per column
-  static constexpr int kCountBits = 3;  // a lane's count is 0..4
-  static constexpr int kColSlots = 32 * kLaneSlots;
-  static constexpr int kWarpSlots = kCompactCols * kColSlots;
-  static constexpr int kTileSlots = kCompactWarps * kWarpSlots;
-  static constexpr int kCache = 64;
   static constexpr bool kValues = true;
-  struct Vals {
-    uint32_t v[kCompactCols][4];
-  };
 
-  const int32_t* depth;
+  const int32_t* in;
   int32_t carry;  // the depth before slot 0, when has_carry
   int has_carry;
 
-  __device__ __forceinline__ void load(int64_t warp_first, int64_t n,
-                                       uint32_t (&bits)[kCompactCols][1],
-                                       Vals& vals) const {
-    const int lane = threadIdx.x & 31;
-    auto& v = vals.v;
-    if (warp_first + kWarpSlots <= n) {
-#pragma unroll
-      for (int c = 0; c < kCompactCols; ++c) {
-        const int4 q =
-            __ldg(reinterpret_cast<const int4*>(depth + warp_first + kColSlots * c + 4 * lane));
-        v[c][0] = q.x; v[c][1] = q.y; v[c][2] = q.z; v[c][3] = q.w;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < kCompactCols; ++c) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int64_t i = warp_first + kColSlots * c + 4 * lane + k;
-          v[c][k] = i < n ? static_cast<uint32_t>(depth[i]) : 0u;
-        }
-      }
-    }
-    // the depth just before the warp's first slot
-    uint32_t prev_col_last = 0u;
-    bool forced = false;
-    if (warp_first > 0) {
-      if (warp_first <= n) prev_col_last = static_cast<uint32_t>(depth[warp_first - 1]);
-    } else if (has_carry) {
-      prev_col_last = static_cast<uint32_t>(carry);
-    } else {
-      forced = true;
-    }
-#pragma unroll
-    for (int c = 0; c < kCompactCols; ++c) {
-      const uint32_t up = __shfl_up_sync(kFull, v[c][3], 1);
-      uint32_t prev = lane == 0 ? prev_col_last : up;
-      uint32_t b = 0u;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        b |= static_cast<uint32_t>(v[c][k] != prev) << k;
-        prev = v[c][k];
-      }
-      prev_col_last = __shfl_sync(kFull, v[c][3], 31);
-      const int64_t first = warp_first + kColSlots * c + 4 * lane;
-      if (first + 4 > n) b &= first >= n ? 0u : (1u << (n - first)) - 1u;
-      bits[c][0] = b;
-    }
-    if (forced && lane == 0) bits[0][0] |= 1u;
+  // The last tile is padded with the last depth, which starts no run.
+  __device__ __forceinline__ int32_t pad(int64_t n) const { return in[n - 1]; }
+
+  // The depth before the tile: the slot before it, the carry, or (a forced
+  // boundary) any value but the tile's first depth.
+  __device__ __forceinline__ uint32_t before(const int32_t* tile, int64_t tile_first) const {
+    if (tile_first > 0) return static_cast<uint32_t>(in[tile_first - 1]);
+    return has_carry ? static_cast<uint32_t>(carry) : static_cast<uint32_t>(tile[0]) + 1u;
   }
 
-  // slot j of the lane's column c, by selects (a runtime index into the
-  // register array would put it in local memory)
-  __device__ __forceinline__ static int32_t value(const Vals& vals, int c, int j) {
-    const uint32_t* v = vals.v[c];
-    return static_cast<int32_t>(j == 0 ? v[0] : j == 1 ? v[1] : j == 2 ? v[2] : v[3]);
+  __device__ __forceinline__ void bits(const int32_t* tile, int first, uint32_t before,
+                                       uint32_t (&b)[1]) const {
+    const int4 v = *reinterpret_cast<const int4*>(tile + first);
+    const int32_t up = __shfl_up_sync(kFull, v.w, 1);
+    const int32_t prev = (threadIdx.x & 31) ? up
+                         : first > 0      ? tile[first - 1]
+                                          : static_cast<int32_t>(before);
+    b[0] = static_cast<uint32_t>(v.x != prev) | (static_cast<uint32_t>(v.y != v.x) << 1) |
+           (static_cast<uint32_t>(v.z != v.y) << 2) | (static_cast<uint32_t>(v.w != v.z) << 3);
   }
 };
 
-// The per-tile scratch of one call, carved from one buffer: per predicate a
-// row of n_tiles + 1 64-bit words (counts, then exclusive offsets and the
-// total), then kCache 16-bit tile-local offsets per tile and predicate,
-// then (run form) kCache depths per tile.
+// status: per predicate one row of ceil(n / tile slots) zeroed status
+// words, then one word per predicate that receives its total.  Outputs
+// hold cap entries each.
 template <class Form>
-struct CompactScratch {
-  unsigned long long* counts;
-  uint16_t* cache;
-  int32_t* vcache;
-  int64_t n_tiles;
+__global__ void __launch_bounds__(kCompactThreads, Form::kMinBlocks)
+compact_kernel(const Form f, int64_t n, unsigned long long* status, int64_t cap,
+               int64_t* __restrict__ idx0, int64_t* __restrict__ idx1,
+               int64_t* __restrict__ idx2, int32_t* __restrict__ vals) {
+  using Elem = typename Form::Elem;
+  constexpr int NS = Form::kStreams;
+  constexpr int kTileBytes = Form::kTileBytes;
+  constexpr int kTileSlots = kTileBytes / static_cast<int>(sizeof(Elem));
+  constexpr int kCompactCols = kTileBytes / (kCompactWarps * kCompactColBytes);  // a warp's
+  static_assert(kCompactCols * kCompactWarps * kCompactColBytes == kTileBytes,
+                "a tile is whole columns of every warp");
+  static_assert(kCompactCols * 16 <= static_cast<int>(kCountMask),
+                "a lane's count over its columns fits its field");
+  constexpr int kColSlots = kCompactColBytes / static_cast<int>(sizeof(Elem));
+  constexpr int kLaneSlots = 16 / static_cast<int>(sizeof(Elem));
+  extern __shared__ __align__(128) unsigned char compact_ring[];
+  __shared__ __align__(8) unsigned long long full[kCompactStages];
+  __shared__ uint32_t warp_counts[2][NS][kCompactWarps];  // this tile's, the next's
+  __shared__ unsigned long long warp_base[NS][kCompactWarps];
+  __shared__ uint16_t stage[kCompactWarps][kColSlots];
 
-  __host__ __device__ static int64_t tiles(int64_t n) {
-    return (n + Form::kTileSlots - 1) / Form::kTileSlots;
-  }
-  // 64-bit words of scratch for n slots
-  __host__ __device__ static int64_t words(int64_t n) {
-    const int64_t t = tiles(n);
-    const int64_t cache_bytes = Form::kStreams * t * Form::kCache * 2 +
-                                (Form::kValues ? t * Form::kCache * 4 : 0);
-    return Form::kStreams * (t + 1) + (cache_bytes + 7) / 8;
-  }
-  __host__ __device__ static CompactScratch carve(void* base, int64_t n) {
-    CompactScratch sc;
-    sc.n_tiles = tiles(n);
-    sc.counts = static_cast<unsigned long long*>(base);
-    sc.cache = reinterpret_cast<uint16_t*>(sc.counts + Form::kStreams * (sc.n_tiles + 1));
-    sc.vcache = reinterpret_cast<int32_t*>(sc.cache +
-                                           Form::kStreams * sc.n_tiles * Form::kCache);
-    return sc;
-  }
-  __device__ __forceinline__ unsigned long long* row(int s) const {
-    return counts + s * (n_tiles + 1);
-  }
-};
-
-template <class Form>
-__device__ __forceinline__ int64_t compact_warp_first() {
-  return static_cast<int64_t>(blockIdx.x) * Form::kTileSlots +
-         static_cast<int64_t>(threadIdx.x >> 5) * Form::kWarpSlots;
-}
-
-// Each warp's set slots per stream into warp_counts[s][warp]; one barrier.
-template <class Form>
-__device__ __forceinline__ void warp_totals(const uint32_t (&bits)[kCompactCols][Form::kStreams],
-                                            uint32_t (*warp_counts)[kCompactWarps]) {
+  const int64_t n_tiles = (n + kTileSlots - 1) / kTileSlots;
+  unsigned long long* totals = status + NS * n_tiles;
+  Elem* ring = reinterpret_cast<Elem*>(compact_ring);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+
+  // the block's k-th tile, and thread 0 starting its copy into ring slot
+  // k % kCompactStages; the last, partial tile (or none past the end)
+  // completes the slot's phase with no bytes
+  auto tile_at = [&](int k) {
+    return static_cast<int64_t>(blockIdx.x) + static_cast<int64_t>(k) * gridDim.x;
+  };
+  auto refill = [&](int k) {
+    const int st = k % kCompactStages;
+    const uint32_t bar = smem_addr(&full[st]);
+    const int64_t first = tile_at(k) * kTileSlots;
+    if (first + kTileSlots <= n) {
+      // the slot's earlier reads (generic proxy) before the copy's writes
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(bar), "r"(kTileBytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];"
+          ::"r"(smem_addr(ring + st * kTileSlots)), "l"(f.in + first),
+            "r"(kTileBytes), "r"(bar) : "memory");
+    } else {
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+    }
+  };
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int s = 0; s < Form::kStreams; ++s) {
-    uint32_t c = 0u;
+    for (int s = 0; s < kCompactStages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&full[s])) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 #pragma unroll
-    for (int col = 0; col < kCompactCols; ++col) c += __popc(bits[col][s]);
-    c = __reduce_add_sync(kFull, c);
-    if (lane == 0) warp_counts[s][warp] = c;
+    for (int k = 0; k < kCompactStages; ++k) refill(k);
   }
   __syncthreads();
-}
 
-// Calls put(pos, c, offset, value) for every set slot of stream s, in
-// order: pos = base + its rank in the warp, c its column, offset its place
-// in the column and value its slot's Form::value.  Each column's set slots
-// are ranked by ballots and staged in the warp's shared-memory rows
-// (kColSlots entries each), then handed to put by consecutive lanes, so the
-// writes put makes are contiguous.  Every lane of the warp must call it.
-template <class Form, class Put>
-__device__ __forceinline__ void emit_ranked(const uint32_t (&bits)[kCompactCols][Form::kStreams],
-                                            const typename Form::Vals& vals, int s,
-                                            unsigned long long base, uint16_t* stage,
-                                            int32_t* vstage, Put put) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t lanes_before = (1u << lane) - 1u;
-#pragma unroll
-  for (int c = 0; c < kCompactCols; ++c) {
-    const uint32_t b = bits[c][s];
-    const uint32_t cnt = __popc(b);
-    uint32_t before = 0u, col_total = 0u;
-#pragma unroll
-    for (int k = 0; k < Form::kCountBits; ++k) {
-      const uint32_t ballot = __ballot_sync(kFull, (cnt >> k) & 1u);
-      before += static_cast<uint32_t>(__popc(ballot & lanes_before)) << k;
-      col_total += static_cast<uint32_t>(__popc(ballot)) << k;
-    }
-    if (col_total == 0u) continue;  // the same in every lane
-    uint32_t at = before;
-    for (uint32_t m = b; m != 0u; m &= m - 1u, ++at) {
-      const int j = __ffs(m) - 1;
-      stage[at] = static_cast<uint16_t>(Form::kLaneSlots * lane + j);
-      if (Form::kValues) vstage[at] = Form::value(vals, c, j);
-    }
-    __syncwarp();
-    for (uint32_t i = lane; i < col_total; i += 32) {
-      put(base + i, c, stage[i], Form::kValues ? vstage[i] : 0);
-    }
-    __syncwarp();
-    base += col_total;
-  }
-}
-
-// Pass 1: each tile's set slots per stream, and, where they are at most
-// kCache, their tile-local offsets (and depths) in the tile's scratch.
-template <class Form>
-__global__ void __launch_bounds__(kCompactThreads)
-compact_count_kernel(const Form f, int64_t n, const CompactScratch<Form> sc) {
-  constexpr int NS = Form::kStreams;
-  __shared__ uint32_t warp_counts[NS][kCompactWarps];
-  __shared__ uint16_t stage[kCompactWarps][Form::kColSlots];
-  __shared__ int32_t vstage[kCompactWarps][Form::kValues ? Form::kColSlots : 1];
-  const int warp = threadIdx.x >> 5;
-  const int64_t warp_first = compact_warp_first<Form>();
-  uint32_t bits[kCompactCols][NS];
-  typename Form::Vals vals;
-  f.load(warp_first, n, bits, vals);
-  warp_totals<Form>(bits, warp_counts);
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    uint32_t total = 0u, before = 0u;
-#pragma unroll
-    for (int w = 0; w < kCompactWarps; ++w) {
-      const uint32_t c = warp_counts[s][w];
-      total += c;
-      if (w < warp) before += c;
-    }
-    if (threadIdx.x == 0) sc.row(s)[blockIdx.x] = total;
-    if (total <= Form::kCache) {  // the same in every thread of the block
-      uint16_t* cache = sc.cache + (s * sc.n_tiles + blockIdx.x) * Form::kCache;
-      int32_t* vcache = sc.vcache + static_cast<int64_t>(blockIdx.x) * Form::kCache;
-      emit_ranked<Form>(bits, vals, s, before, stage[warp], vstage[warp],
-                        [&](unsigned long long pos, int c, int offset, int32_t value) {
-        cache[pos] = static_cast<uint16_t>(warp * Form::kWarpSlots + Form::kColSlots * c + offset);
-        if (Form::kValues) vcache[pos] = value;
-      });
-    }
-  }
-}
-
-// Pass 2: row blockIdx.x of the counts (n_tiles words) scanned into
-// exclusive offsets in place, by one block; the row's sum goes after them.
-__global__ void __launch_bounds__(kCarryThreads)
-compact_carry_kernel(unsigned long long* __restrict__ counts, int64_t n_tiles) {
-  static_assert(kCarryThreads == 1024, "one warp scans the 32 warp sums");
-  __shared__ unsigned long long warp_sums[32];
-  unsigned long long* row = counts + blockIdx.x * (n_tiles + 1);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  unsigned long long running = 0;
-  for (int64_t base = 0; base < n_tiles;
-       base += static_cast<int64_t>(kCarryThreads) * kItems) {
-    const int64_t first = base + static_cast<int64_t>(threadIdx.x) * kItems;
-    unsigned long long v[kItems];
-    unsigned long long s = 0;
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      v[k] = first + k < n_tiles ? row[first + k] : 0ull;
-      s += v[k];
-    }
-    unsigned long long inc = s;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned long long y = __shfl_up_sync(kFull, inc, o);
-      if (lane >= o) inc += y;
-    }
-    if (lane == 31) warp_sums[warp] = inc;
-    __syncthreads();
-    if (warp == 0) {
-      unsigned long long w = warp_sums[lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const unsigned long long y = __shfl_up_sync(kFull, w, o);
-        if (lane >= o) w += y;
+  // the block's k-th tile in its ring slot, once arrived (the partial tile
+  // loaded and padded by the block)
+  auto ready = [&](int k) {
+    mbar_wait(smem_addr(&full[k % kCompactStages]), (k / kCompactStages) & 1);
+    Elem* t = ring + (k % kCompactStages) * kTileSlots;
+    const int64_t first = tile_at(k) * kTileSlots;
+    if (first + kTileSlots > n) {
+      const Elem p = f.pad(n);
+      for (int i = threadIdx.x; i < kTileSlots; i += kCompactThreads) {
+        t[i] = first + i < n ? f.in[first + i] : p;
       }
-      warp_sums[lane] = w;
+      __syncthreads();
     }
-    __syncthreads();
-    unsigned long long acc = running + (warp ? warp_sums[warp - 1] : 0ull) + inc - s;
-    const unsigned long long total = warp_sums[31];
-    __syncthreads();
+    return t;
+  };
+  // the bits of the warp's columns of the block's k-th tile into b (kept
+  // in registers until the tile's slots are stored), their set slots per
+  // warp and predicate into warp_counts[k & 1], and the tile's count
+  // published by warp s (tile 0's as its inclusive prefix)
+  auto count = [&](int k, const Elem* t, uint32_t (&b)[kCompactCols][NS]) {
+    const int64_t tile = tile_at(k);
+    const uint32_t before = f.before(t, tile * kTileSlots);
+    uint32_t lane_counts = 0u;
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      if (first + k < n_tiles) row[first + k] = acc;
-      acc += v[k];
+    for (int c = 0; c < kCompactCols; ++c) {
+      f.bits(t, (warp * kCompactCols + c) * kColSlots + lane * kLaneSlots, before, b[c]);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) lane_counts += __popc(b[c][s]) << (kCountBits * s);
     }
-    running += total;
-  }
-  if (threadIdx.x == 0) row[n_tiles] = running;
-}
-
-// Pass 3: each set slot's index (and, run form, its depth) at the tile's
-// offset plus its rank in the tile: copied from the tile's scratch, or,
-// where pass 1 kept none, ranked again from the input.
-template <class Form>
-__global__ void __launch_bounds__(kCompactThreads)
-compact_write_kernel(const Form f, int64_t n, const CompactScratch<Form> sc,
-                     int64_t* __restrict__ idx0, int64_t* __restrict__ idx1,
-                     int64_t* __restrict__ idx2, int32_t* __restrict__ vals_out) {
-  constexpr int NS = Form::kStreams;
-  __shared__ uint32_t warp_counts[NS][kCompactWarps];
-  const int64_t tile = blockIdx.x;
-  const int64_t tile_first = tile * Form::kTileSlots;
-  bool kept = true;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) kept &= sc.row(s)[tile + 1] - sc.row(s)[tile] <= Form::kCache;
-  if (kept) {  // the same in every thread of the block
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
-      int64_t* out = s == 0 ? idx0 : s == 1 ? idx1 : idx2;
-      const unsigned long long base = sc.row(s)[tile];
-      const int count = static_cast<int>(sc.row(s)[tile + 1] - base);
-      const uint16_t* cache = sc.cache + (s * sc.n_tiles + tile) * Form::kCache;
-      for (int i = threadIdx.x; i < count; i += kCompactThreads) {
-        out[base + i] = tile_first + cache[i];
-        if (Form::kValues) vals_out[base + i] = sc.vcache[tile * Form::kCache + i];
+      const uint32_t w = __reduce_add_sync(kFull, (lane_counts >> (kCountBits * s)) & kCountMask);
+      if (lane == 0) warp_counts[k & 1][s][warp] = w;
+    }
+    __syncthreads();
+    if (warp < NS && lane == 0) {
+      uint32_t total = 0u;
+#pragma unroll
+      for (int w = 0; w < kCompactWarps; ++w) total += warp_counts[k & 1][warp][w];
+      publish<true>(status + warp * n_tiles + tile,
+                    tile == 0 ? kTileInclusive : kTileAggregate,
+                    static_cast<unsigned long long>(total));
+    }
+  };
+
+  const Elem* t = ready(0);
+  uint32_t bits[kCompactCols][NS];  // the tile's
+  count(0, t, bits);
+  for (int k = 0; tile_at(k) < n_tiles; ++k) {
+    const int64_t tile = tile_at(k);
+    const int64_t tile_first = tile * kTileSlots;
+    // the next tile's count goes out before this one's look-back, so the
+    // blocks behind find every count of their window already published
+    const Elem* next = nullptr;
+    uint32_t next_bits[kCompactCols][NS];
+    if (tile_at(k + 1) < n_tiles) {
+      next = ready(k + 1);
+      count(k + 1, next, next_bits);
+    }
+
+    // warp s: the warps' offsets of predicate s and the tile's exclusive
+    // offset from its look-back
+    if (warp < NS) {
+      const int s = warp;
+      const uint32_t c = lane < kCompactWarps ? warp_counts[k & 1][s][lane] : 0u;
+      uint32_t inc = c;
+#pragma unroll
+      for (int o = 1; o < kCompactWarps; o <<= 1) {
+        const uint32_t y = __shfl_up_sync(kFull, inc, o);
+        if (lane >= o) inc += y;
+      }
+      const unsigned long long total = __shfl_sync(kFull, inc, kCompactWarps - 1);
+      unsigned long long* row = status + s * n_tiles;
+      unsigned long long exclusive = 0;
+      if (tile > 0) {
+        // the status words carry their values: relaxed loads and stores
+        exclusive = look_back<unsigned long long, true>(row, tile);
+        if (lane == 0) publish<true>(row + tile, kTileInclusive, exclusive + total);
+      }
+      if (lane < kCompactWarps) warp_base[s][lane] = exclusive + inc - c;
+      if (lane == 0 && tile == n_tiles - 1) totals[s] = exclusive + total;
+    }
+    __syncthreads();
+
+    // each set slot's index (and depth) at its rank
+    unsigned long long base[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) base[s] = warp_base[s][warp];
+#pragma unroll
+    for (int c = 0; c < kCompactCols; ++c) {
+      uint32_t packed = 0u;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) packed |= __popc(bits[c][s]) << (kCountBits * s);
+      if (!__any_sync(kFull, packed != 0u)) continue;
+      uint32_t inc = packed;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t y = __shfl_up_sync(kFull, inc, o);
+        if (lane >= o) inc += y;
+      }
+      const uint32_t col_total = __shfl_sync(kFull, inc, 31);
+      const uint32_t lane_rank = inc - packed;
+      const int col = (warp * kCompactCols + c) * kColSlots;  // tile-local
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const uint32_t total = (col_total >> (kCountBits * s)) & kCountMask;
+        if (total == 0u) continue;  // the same in every lane
+        uint32_t at = (lane_rank >> (kCountBits * s)) & kCountMask;
+        for (uint32_t m = bits[c][s]; m != 0u; m &= m - 1u, ++at) {
+          stage[warp][at] = static_cast<uint16_t>(lane * kLaneSlots + __ffs(m) - 1);
+        }
+        __syncwarp();
+        int64_t* out = s == 0 ? idx0 : s == 1 ? idx1 : idx2;
+        for (uint32_t i = lane; i < total; i += 32) {
+          const unsigned long long pos = base[s] + i;
+          if (pos < static_cast<unsigned long long>(cap)) {
+            const int offset = col + stage[warp][i];
+            out[pos] = tile_first + offset;
+            if (Form::kValues) vals[pos] = static_cast<int32_t>(t[offset]);
+          }
+        }
+        __syncwarp();
+        base[s] += total;
       }
     }
-    return;
-  }
-  __shared__ uint16_t stage[kCompactWarps][Form::kColSlots];
-  __shared__ int32_t vstage[kCompactWarps][Form::kValues ? Form::kColSlots : 1];
-  const int warp = threadIdx.x >> 5;
-  const int64_t warp_first = compact_warp_first<Form>();
-  uint32_t bits[kCompactCols][NS];
-  typename Form::Vals vals;
-  f.load(warp_first, n, bits, vals);
-  warp_totals<Form>(bits, warp_counts);
+    __syncthreads();  // the ring slot is free again
+    if (threadIdx.x == 0) refill(k + kCompactStages);
+    t = next;
 #pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    int64_t* out = s == 0 ? idx0 : s == 1 ? idx1 : idx2;
-    unsigned long long base = sc.row(s)[tile];
-    for (int w = 0; w < warp; ++w) base += warp_counts[s][w];
-    emit_ranked<Form>(bits, vals, s, base, stage[warp], vstage[warp],
-                      [&](unsigned long long pos, int c, int offset, int32_t value) {
-      out[pos] = warp_first + Form::kColSlots * c + offset;
-      if (Form::kValues) vals_out[pos] = value;
-    });
+    for (int c = 0; c < kCompactCols; ++c) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) bits[c][s] = next_bits[c][s];
+    }
   }
 }
 
-// Passes 1 and 2 over scratch of CompactScratch<Form>::words(n) words.
+// One launch over n > 0 slots: status as compact_kernel takes it (zeroed
+// here, on the stream); outputs of cap entries (unused predicates' may be
+// null).  Then the predicates' totals into the host array `totals`, and
+// the stream synchronized: the call's one host sync.
 template <class Form>
-int launch_compact_count(const Form& f, void* scratch, int64_t n, int device,
-                         cudaStream_t stream) {
+int launch_compact(const Form& f, int64_t n, unsigned long long* status, int64_t cap,
+                   int64_t* idx0, int64_t* idx1, int64_t* idx2, int32_t* vals,
+                   int device, cudaStream_t stream, int64_t* totals) {
+  constexpr int kSmem = kCompactStages * Form::kTileBytes;
+  constexpr int kTileSlots = Form::kTileBytes / static_cast<int>(sizeof(typename Form::Elem));
+  // blocks that fit on each device at once, found on the first launch there
+  // (the CUDA runtime's queries cost more than the launch)
+  constexpr int kDevices = 64;
+  static int resident_on[kDevices];
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto sc = CompactScratch<Form>::carve(scratch, n);
-  compact_count_kernel<Form><<<static_cast<unsigned>(sc.n_tiles), kCompactThreads, 0, stream>>>(
-      f, n, sc);
-  err = cudaGetLastError();
+  if (device < 0 || device >= kDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident_on[device] == 0) {
+    err = cudaFuncSetAttribute(compact_kernel<Form>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, compact_kernel<Form>,
+                                                        kCompactThreads, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm * sms == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    resident_on[device] = per_sm * sms;
+  }
+  const int64_t n_tiles = (n + kTileSlots - 1) / kTileSlots;
+  err = cudaMemsetAsync(status, 0, (n_tiles + 1) * Form::kStreams * sizeof(*status), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  compact_carry_kernel<<<Form::kStreams, kCarryThreads, 0, stream>>>(sc.counts, sc.n_tiles);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Pass 3, after launch_compact_count on the same scratch.
-template <class Form>
-int launch_compact_write(const Form& f, void* scratch, int64_t n, int64_t* idx0,
-                         int64_t* idx1, int64_t* idx2, int32_t* vals, int device,
-                         cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const int64_t resident = resident_on[device];
+  const unsigned grid = static_cast<unsigned>(n_tiles < resident ? n_tiles : resident);
+  // a cooperative launch runs every block at once or fails, so no block
+  // waits in its look-back on a tile whose block is not running
+  Form form = f;
+  void* args[] = {&form, &n, &status, &cap, &idx0, &idx1, &idx2, &vals};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&compact_kernel<Form>),
+                                    dim3(grid), dim3(kCompactThreads), args, kSmem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto sc = CompactScratch<Form>::carve(scratch, n);
-  compact_write_kernel<Form><<<static_cast<unsigned>(sc.n_tiles), kCompactThreads, 0, stream>>>(
-      f, n, sc, idx0, idx1, idx2, vals);
-  return static_cast<int>(cudaGetLastError());
+  // the totals through this thread's pinned words for the device (a copy
+  // to pageable memory is staged, and slower)
+  static thread_local int64_t* pinned[kDevices];
+  if (pinned[device] == nullptr) {
+    err = cudaHostAlloc(reinterpret_cast<void**>(&pinned[device]), 3 * sizeof(int64_t),
+                        cudaHostAllocDefault);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = cudaMemcpyAsync(pinned[device], status + Form::kStreams * n_tiles,
+                        Form::kStreams * sizeof(*totals), cudaMemcpyDeviceToHost, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaStreamSynchronize(stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int s = 0; s < Form::kStreams; ++s) totals[s] = pinned[device][s];
+  return 0;
 }
 
 int64_t tiles_for(int64_t n) { return (n + kTile - 1) / kTile; }
@@ -1266,71 +1265,43 @@ int gci_edges_scan(const int32_t* delta, const int8_t* valid, int32_t* depth,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The compaction's scratch, in 64-bit words, for n slots and n_masks masks
-// (flag form) or for the run form: per predicate n_tiles + 1 words of counts,
-// offsets and the total (the total of predicate s is word
-// s * (n_tiles + 1) + n_tiles), then the tiles' kept entries.
-int64_t gci_compact_flags_scratch_words(int64_t n, int n_masks) {
-  switch (n_masks) {
-    case 1: return CompactScratch<FlagForm<1>>::words(n);
-    case 2: return CompactScratch<FlagForm<2>>::words(n);
-    case 3: return CompactScratch<FlagForm<3>>::words(n);
-    default: return -1;
-  }
-}
-int64_t gci_compact_runs_scratch_words(int64_t n) { return CompactScratch<RunForm>::words(n); }
+// The compaction's scratch, in 64-bit words (zeroed by the entry): per
+// predicate ceil(n / tile slots) status words, then one word per predicate
+// that receives its total.  Tile slots of the two forms:
+int gci_compact_flags_tile_slots() { return kFlagTileBytes; }
+int gci_compact_runs_tile_slots() { return kRunTileBytes / 4; }
 
-// Slots per tile of the two forms.
-int gci_compact_flags_tile_slots() { return FlagForm<1>::kTileSlots; }
-int gci_compact_runs_tile_slots() { return RunForm::kTileSlots; }
-
-// Flag form, passes 1 and 2: the counts of (x & m) != 0 for the n_masks
-// (1-3) masks in the bytes of `masks`.  x is 16-byte aligned.
-int gci_compact_flags_count(const int8_t* x, uint32_t masks, int n_masks, void* scratch,
-                            int64_t n, int device, void* stream) {
+// Flag form: the ascending indices of (x & m) != 0 for the n_masks (1-3)
+// masks in the bytes of `masks`, into idx0..idx2 (capacity entries each;
+// unused predicates' may be null), and each mask's count into totals (a
+// host array).  x is 16-byte aligned.
+int gci_compact_flags(const int8_t* x, uint32_t masks, int n_masks,
+                      unsigned long long* scratch, int64_t n, int64_t capacity,
+                      int64_t* idx0, int64_t* idx1, int64_t* idx2, int device,
+                      void* stream, int64_t* totals) {
   if (n <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   switch (n_masks) {
-    case 1: return launch_compact_count(FlagForm<1>{x, masks}, scratch, n, device, s);
-    case 2: return launch_compact_count(FlagForm<2>{x, masks}, scratch, n, device, s);
-    case 3: return launch_compact_count(FlagForm<3>{x, masks}, scratch, n, device, s);
+    case 1: return launch_compact(FlagForm<1>{x, masks}, n, scratch, capacity, idx0, idx1,
+                                  idx2, nullptr, device, s, totals);
+    case 2: return launch_compact(FlagForm<2>{x, masks}, n, scratch, capacity, idx0, idx1,
+                                  idx2, nullptr, device, s, totals);
+    case 3: return launch_compact(FlagForm<3>{x, masks}, n, scratch, capacity, idx0, idx1,
+                                  idx2, nullptr, device, s, totals);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Flag form, pass 3: the ascending indices under each mask into idx0..idx2
-// (exactly sized by the totals; unused streams may be null).
-int gci_compact_flags_write(const int8_t* x, uint32_t masks, int n_masks, void* scratch,
-                            int64_t n, int64_t* idx0, int64_t* idx1, int64_t* idx2,
-                            int device, void* stream) {
+// Run form: the ascending indices of depth[i] != depth[i-1] (slot 0
+// against carry when has_carry, else forced) and their depths (capacity
+// entries each), and their count into totals[0].  depth is 16-byte
+// aligned.
+int gci_compact_runs(const int32_t* depth, int32_t carry, int has_carry,
+                     unsigned long long* scratch, int64_t n, int64_t capacity, int64_t* idx,
+                     int32_t* vals, int device, void* stream, int64_t* totals) {
   if (n <= 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (n_masks) {
-    case 1: return launch_compact_write(FlagForm<1>{x, masks}, scratch, n, idx0, idx1, idx2,
-                                        nullptr, device, s);
-    case 2: return launch_compact_write(FlagForm<2>{x, masks}, scratch, n, idx0, idx1, idx2,
-                                        nullptr, device, s);
-    case 3: return launch_compact_write(FlagForm<3>{x, masks}, scratch, n, idx0, idx1, idx2,
-                                        nullptr, device, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// Run form, passes 1 and 2: the count of depth[i] != depth[i-1] (slot 0
-// against carry when has_carry, else forced).  depth is 16-byte aligned.
-int gci_compact_runs_count(const int32_t* depth, int32_t carry, int has_carry, void* scratch,
-                           int64_t n, int device, void* stream) {
-  if (n <= 0) return 0;
-  return launch_compact_count(RunForm{depth, carry, has_carry}, scratch, n, device,
-                              static_cast<cudaStream_t>(stream));
-}
-
-// Run form, pass 3: the boundaries' ascending indices and their depths.
-int gci_compact_runs_write(const int32_t* depth, int32_t carry, int has_carry, void* scratch,
-                           int64_t n, int64_t* idx, int32_t* vals, int device, void* stream) {
-  if (n <= 0) return 0;
-  return launch_compact_write(RunForm{depth, carry, has_carry}, scratch, n, idx, nullptr,
-                              nullptr, vals, device, static_cast<cudaStream_t>(stream));
+  return launch_compact(RunForm{depth, carry, has_carry}, n, scratch, capacity, idx, nullptr,
+                        nullptr, vals, device, static_cast<cudaStream_t>(stream), totals);
 }
 
 }  // extern "C"

@@ -28,11 +28,12 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 # Bytes per genome slot that the resident device path (depth/fused.py) holds
 # on the card at its peak, in a dual-type run with gaps.  Through the
 # two-type stage each read type's gap-masked depth and flag bytes (4 + 1,
-# twice) and the two-type maximum (4) stay resident, 14 B/slot.  The
-# compactions add no per-slot buffer (the compaction kernel keeps per-tile
-# scratch only), so the largest transient on top is the scan-window marks
-# of the two-type issue pass (``collapse_dict`` -> ``valid_marks_for``):
-# the int32 event scatter (4), its int32 prefix sum (4), the bool of
+# twice) and the two-type maximum (4) stay resident, 14 B/slot.  A
+# compaction's buffers stay within ``scan.capacity_for``'s limit (an eighth
+# of a byte a slot, or 64 MiB; the kernel keeps per-tile scratch only) and
+# none runs while the marks below live, so the largest transient on top is
+# the scan-window marks of the two-type issue pass (``collapse_dict`` ->
+# ``valid_marks_for``): the int32 event scatter (4), its int32 prefix sum (4), the bool of
 # ``prefix > 0`` (1) and the int8 marks (1), 24 B/slot in all.  The card
 # measured 9,502,195,712 B at 395,765,512 slots, 24.0097 B/slot (an NVIDIA
 # H100 80GB HBM3 at 700 W, chip_smoke.py phase 5, packed and flags paths);

@@ -35,7 +35,13 @@ import numpy as np
 import torch
 
 from gci_tpu_torch.depth.accum import GenomeLayout, clamp_read_intervals
-from gci_tpu_torch.depth.scan import compact_flags, compact_runs, depth_scan, fused_depth_scan
+from gci_tpu_torch.depth.scan import (
+    capacity_for,
+    compact_flags,
+    compact_runs,
+    depth_scan,
+    fused_depth_scan,
+)
 from gci_tpu_torch.parallel import distributed
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -332,16 +338,22 @@ def _gather_shard_records(out: dict) -> dict:
     return got
 
 
-def sharded_compact_gather(flags: dict, masks: tuple) -> dict[int, list[np.ndarray]]:
+def sharded_compact_gather(flags: dict, masks: tuple,
+                           capacity: int | None = None) -> dict[int, list[np.ndarray]]:
     """{gp index: one int64 host array per mask} for every shard: the sorted
     shard-local indices where ``(flags[g] & m) != 0`` (the flag form of the
     compaction kernel per shard of this process, exactly sized, one
-    readback each), then one host all-gather across processes."""
-    out = {g: _to_host(compact_flags(x, masks)) for g, x in flags.items()}
+    readback each; ``capacity`` bounds each shard's counts, and
+    ``capacity_for`` sizes each shard's buffers by it), then one host
+    all-gather across processes."""
+    out = {g: _to_host(compact_flags(x, masks,
+                                     capacity_for(capacity, x.shape[0], len(masks))))
+           for g, x in flags.items()}
     return _gather_shard_records(out)
 
 
-def sharded_runs(mesh, depth: dict, offsets: dict) -> dict[int, list[np.ndarray]]:
+def sharded_runs(mesh, depth: dict, offsets: dict,
+                 capacity: int | None = None) -> dict[int, list[np.ndarray]]:
     """{gp index: [idx, vals, offset_vals]} for every shard, int64 host
     arrays: the sorted shard-local run boundaries of the depth (across a
     shard border against the left shard's last value; global slot 0 is
@@ -351,12 +363,15 @@ def sharded_runs(mesh, depth: dict, offsets: dict) -> dict[int, list[np.ndarray]
     Per shard of this process: the run form of the compaction kernel, with
     the left shard's last value (one host all-gather of every shard's last
     element) as its carry, and the offsets' gather, read back in one
-    transfer; then one host all-gather across processes.
+    transfer (``capacity`` bounds each shard's count, as in
+    ``sharded_compact_gather``); then one host
+    all-gather across processes.
     """
     last = shard_values(mesh, {g: int(x[-1]) for g, x in depth.items()})
     out = {}
     for g, x in depth.items():
-        idx, vals = compact_runs(x, last[g - 1] if g else None)
+        idx, vals = compact_runs(x, last[g - 1] if g else None,
+                                 capacity_for(capacity, x.shape[0], 1, True))
         off = torch.as_tensor(offsets[g], dtype=torch.int64, device=x.device)
         out[g] = _to_host([idx, vals, x[off]])
     return _gather_shard_records(out)

@@ -13,6 +13,12 @@ and issue edges are compacted on the device by the stream-compaction kernel
 (``scan.compact_flags`` over the flag byte, ``scan.compact_runs`` over a
 depth), then read back in one transfer.  The reference compacts with a prefix
 sum and ``searchsorted``, to power-of-two sizes; the counts here are exact.
+Each compaction gets a capacity from what built its input: a run boundary
+or an edge falls only where a scatter row landed (a read end, a gap border,
+a scan-window border) or at slot 0, so those rows plus one bound it
+(``DeviceDepth.change_bound`` carries the bound through mask and max); a
+bound that would size buffers of more than an eighth of a byte a slot
+counts first instead (``scan.capacity_for``).
 
 Plain XLA ops of the reference are plain torch ops here: the scatter-add,
 ``where``, ``maximum`` and gathers.  The torch
@@ -39,6 +45,7 @@ from gci_tpu_torch.depth.device import (
     scatter_events_into,
 )
 from gci_tpu_torch.depth.scan import (
+    capacity_for,
     compact_flags,
     compact_runs,
     fused_depth_scan_flags,
@@ -124,24 +131,26 @@ def _offset_values(array: torch.Tensor, layout: GenomeLayout) -> torch.Tensor:
 
 
 def _batched_flags_readback(array, layout: GenomeLayout, flags, masks: tuple,
-                            gather_stream: int):
+                            gather_stream: int, capacity: int | None = None):
     """One compaction of the bit-masks of one flag byte array (the kernel's
-    rise/fall/change output), then ``array`` at the gather stream's indices
-    and at every target offset, all read back in one transfer.  Counts are
-    exact (the reference pads them to powers of two for static XLA shapes).
-    Returns (list of int64 index arrays, gathered values, values at the
-    offsets)."""
-    idx = compact_flags(flags, masks)
+    rise/fall/change output; ``capacity``, a bound on each count, sizes its
+    buffers through ``capacity_for``), then
+    ``array`` at the gather stream's indices and at every target offset, all
+    read back in one transfer.  Counts are exact (the reference pads them
+    to powers of two for static XLA shapes).  Returns (list of int64 index
+    arrays, gathered values, values at the offsets)."""
+    idx = compact_flags(flags, masks, capacity_for(capacity, flags.shape[0], len(masks)))
     *out_idx, gathered, offset_vals = _to_host(
         idx + [array[idx[gather_stream]], _offset_values(array, layout)])
     return out_idx, gathered, offset_vals
 
 
-def _runs_readback(array, layout: GenomeLayout):
+def _runs_readback(array, layout: GenomeLayout, capacity: int | None = None):
     """(run-boundary indices, the depth of each run, ``array`` at every
-    target offset) as int64 host arrays: one run-form compaction, one
+    target offset) as int64 host arrays: one run-form compaction
+    (``capacity`` bounds its count, as in ``_batched_flags_readback``), one
     transfer."""
-    idx, vals = compact_runs(array)
+    idx, vals = compact_runs(array, None, capacity_for(capacity, array.shape[0], 1, True))
     return tuple(_to_host([idx, vals, _offset_values(array, layout)]))
 
 
@@ -154,6 +163,14 @@ def compact_indices(bitmap: torch.Tensor) -> np.ndarray:
         x, mask = (bitmap != 0).view(torch.int8), 1
     (idx,) = compact_flags(x, (mask,))
     return idx.cpu().numpy()
+
+
+def _event_rows(layout: GenomeLayout, n_reads: int, gaps, flank_len: int) -> int:
+    """Rows of the scatters that build a read set's flag byte: a start and
+    a stop for each read, gap interval and scan window.  Its run boundaries
+    and edges fall only on those rows' slots or at slot 0."""
+    n_gaps = gap_interval_events(layout, gaps)[0].shape[0]
+    return 2 * (n_reads + n_gaps + len(_valid_intervals(layout, flank_len)[0]))
 
 
 def packed_event_word(layout: GenomeLayout, target_id: np.ndarray,
@@ -188,10 +205,13 @@ class DeviceDepth(ResidentDepth):
     def __init__(self, layout: GenomeLayout, array: torch.Tensor, pad_total: int,
                  gap_marks: torch.Tensor | None = None, gaps_src=None,
                  edge_cache=None, change_idx: np.ndarray | None = None,
-                 gap_bit: int = 1):
+                 gap_bit: int = 1, change_bound: int | None = None):
         self.layout = layout
         self.array = array          # int32 (pad_total,) — current depth
         self.pad_total = pad_total
+        # at most this many run boundaries of array (slot 0 included), the
+        # capacity of its compactions; None where not known
+        self.change_bound = change_bound
         self.gap_marks = gap_marks  # int8 gap indicator, shared per run
         self.gap_bit = gap_bit      # which bit of gap_marks means "in gap"
         self._gaps_src = gaps_src   # the gaps dict gap_marks was built from
@@ -259,12 +279,13 @@ class DeviceDepth(ResidentDepth):
         ``PACKED_DEPTH_LIMIT`` reads the packed word is scanned, else a
         plain delta under separate flag bytes.
         """
+        rows = _event_rows(layout, start.shape[0], gaps, flank_len)
         if start.shape[0] < PACKED_DEPTH_LIMIT:
             # no local name for the word: _from_word frees it once it is scanned
             return cls._from_word(
                 layout,
                 packed_event_word(layout, target_id, start, end, flank_len, gaps, device),
-                gaps, flank_len, issue_range,
+                gaps, flank_len, issue_range, rows,
             )
         pad_total = cls.pad_total_for(layout.total_slots)
         # the flags first: their transient prefix buffers then do not
@@ -273,7 +294,7 @@ class DeviceDepth(ResidentDepth):
         gs, ge, live = pack_read_deltas(layout, target_id, start, end, flank_len)
         return cls._from_flags_scan(
             layout, scatter_events(pad_total, device, [(gs, live), (ge, -live)]),
-            flags, gaps, flank_len, issue_range,
+            flags, gaps, flank_len, issue_range, rows,
         )
 
     @classmethod
@@ -284,10 +305,13 @@ class DeviceDepth(ResidentDepth):
         flank_len: int,
         gaps=None,
         issue_range: tuple[int, int] = (-1, 0),
+        rows: int | None = None,
     ) -> "DeviceDepth":
         """Like ``from_reads`` but on an already-accumulated int32 read delta
         on the device (the pack<->scatter overlap entry,
-        ``overlap.DeltaAccumulator``).
+        ``overlap.DeltaAccumulator``).  ``rows`` is the number of scatter
+        rows that built it (``DeltaAccumulator.rows``), which bounds its
+        compactions; without it they count before they write.
 
         The value takes ownership of ``delta``: on the packed path the event
         word is built in it (``delta * 4`` plus the gap and scan-window
@@ -300,10 +324,12 @@ class DeviceDepth(ResidentDepth):
         pad_total = int(delta.shape[0])
         if pad_total != cls.pad_total_for(layout.total_slots):
             raise ValueError(f"delta has {pad_total} slots, layout {layout.total_slots}")
+        if rows is not None:
+            rows += _event_rows(layout, 0, gaps, flank_len)
         if int(delta.clamp(min=0).sum(dtype=torch.int64)) >= PACKED_DEPTH_LIMIT:
             flags = flags_for(layout, gaps, flank_len, pad_total, delta.device)
             return cls._from_flags_scan(layout, delta, flags, gaps, flank_len,
-                                        issue_range)
+                                        issue_range, rows)
         gap_s, gap_e = gap_interval_events(layout, gaps)
         _check_disjoint(gap_s, gap_e)
         val_s, val_e = _valid_intervals(layout, flank_len)
@@ -314,30 +340,30 @@ class DeviceDepth(ResidentDepth):
         raw, out_flags = fused_depth_scan_packed(delta, int(lo), int(hi))
         del delta
         return cls._from_packed_scan(layout, pad_total, raw, out_flags, gaps,
-                                     flank_len, lo, hi)
+                                     flank_len, lo, hi, rows)
 
     @classmethod
-    def _from_word(cls, layout, word, gaps, flank_len, issue_range):
+    def _from_word(cls, layout, word, gaps, flank_len, issue_range, rows):
         lo, hi = issue_range
         raw, out_flags = fused_depth_scan_packed(word, int(lo), int(hi))
         pad_total = word.shape[0]
         del word
         return cls._from_packed_scan(layout, pad_total, raw, out_flags, gaps,
-                                     flank_len, lo, hi)
+                                     flank_len, lo, hi, rows)
 
     @classmethod
     def _from_packed_scan(cls, layout, pad_total, raw, out_flags, gaps,
-                          flank_len, lo, hi):
+                          flank_len, lo, hi, rows):
         # the flag byte's bit3 is the gap mask, kept only when there are gaps
         has_gaps = gap_interval_events(layout, gaps)[0].shape[0] > 0
         return cls._from_kernel_outputs(
             layout, pad_total, raw, out_flags,
-            out_flags if has_gaps else None, gaps, flank_len, lo, hi,
+            out_flags if has_gaps else None, gaps, flank_len, lo, hi, rows,
             gap_bit=8,
         )
 
     @classmethod
-    def _from_flags_scan(cls, layout, delta, flags, gaps, flank_len, issue_range):
+    def _from_flags_scan(cls, layout, delta, flags, gaps, flank_len, issue_range, rows):
         """The flags scan of a plain read delta under ``flags_for`` bytes;
         the flags become the gap marks (bit0) when there are gaps."""
         lo, hi = issue_range
@@ -347,23 +373,27 @@ class DeviceDepth(ResidentDepth):
         has_gaps = gap_interval_events(layout, gaps)[0].shape[0] > 0
         return cls._from_kernel_outputs(
             layout, pad_total, raw, out_flags, flags if has_gaps else None,
-            gaps, flank_len, lo, hi, gap_bit=1,
+            gaps, flank_len, lo, hi, rows, gap_bit=1,
         )
 
     @classmethod
     def _from_kernel_outputs(cls, layout, pad_total, raw, out_flags,
-                             gap_marks, gaps, flank_len, lo, hi,
+                             gap_marks, gaps, flank_len, lo, hi, rows,
                              gap_bit: int = 1):
         # one batched readback for all three edge bit-streams + run values
-        # at the change indices and target offsets
+        # at the change indices and target offsets; a bit of the flag byte
+        # is set only where the word or delta and flags got a scatter row,
+        # or at slot 0: ``rows`` + 1 bounds each stream
         (rise_idx, fall_idx, change_idx), change_vals, offset_vals = (
-            _batched_flags_readback(raw, layout, out_flags, (1, 2, 4), 2)
+            _batched_flags_readback(raw, layout, out_flags, (1, 2, 4), 2,
+                                    None if rows is None else rows + 1)
         )
         intervals = edge_indices_to_intervals(
             layout, rise_idx, fall_idx, flank_len
         )
         dd = cls(layout, raw, pad_total, gap_marks, gaps_src=gaps,
-                 change_idx=change_idx, gap_bit=gap_bit)
+                 change_idx=change_idx, gap_bit=gap_bit,
+                 change_bound=change_idx.shape[0])
         dd._set_gather_map(change_idx, change_vals, offset_vals)
         key = (float(lo), float(hi), int(flank_len))
         dd._pending_masked_edges = (key, intervals)
@@ -412,16 +442,25 @@ class DeviceDepth(ResidentDepth):
             pending = None  # kernel edges were computed under different gaps
         arr = _mask(self.array, marks, gap_bit)
         cache = {pending[0]: pending[1]} if pending is not None else {}
+        # a boundary of the masked depth is one of the depth's or a gap border
+        bound = self.change_bound
+        if bound is not None:
+            bound += 2 * gap_interval_events(self.layout, gaps)[0].shape[0]
         return DeviceDepth(self.layout, arr, self.pad_total, marks,
-                           gaps_src=gaps, edge_cache=cache, gap_bit=gap_bit)
+                           gaps_src=gaps, edge_cache=cache, gap_bit=gap_bit,
+                           change_bound=bound)
 
     def maximum(self, other: "DeviceDepth") -> "DeviceDepth":
         """Per-base two-type max, on device (GCI.py:332-353)."""
         if self.pad_total != other.pad_total:
             raise ValueError("two-type max of depths over different layouts")
+        # a boundary of the max is a boundary of either depth
+        bound = (None if self.change_bound is None or other.change_bound is None
+                 else self.change_bound + other.change_bound)
         return DeviceDepth(
             self.layout, torch.maximum(self.array, other.array), self.pad_total,
             self.gap_marks, gaps_src=self._gaps_src, gap_bit=self.gap_bit,
+            change_bound=bound,
         )
 
     def collapse_dict(
@@ -440,7 +479,12 @@ class DeviceDepth(ResidentDepth):
         valid = valid_marks_for(self.layout, flank_len, self.pad_total, self.device)
         edges = _edges(self.array, valid, int(leftmost), int(rightmost))
         del valid
-        rise_idx, fall_idx = _to_host(compact_flags(edges, (1, 2)))
+        # an edge falls on a run boundary or on a scan-window border
+        bound = self.change_bound
+        if bound is not None:
+            bound += _event_rows(self.layout, 0, None, flank_len)
+        rise_idx, fall_idx = _to_host(compact_flags(
+            edges, (1, 2), capacity_for(bound, edges.shape[0], 2)))
         del edges
         out = edge_indices_to_intervals(
             self.layout, rise_idx, fall_idx, flank_len, start_pos,
@@ -460,7 +504,8 @@ class DeviceDepth(ResidentDepth):
             # masked/merged objects: the run form of the compaction gives
             # the boundaries and their values at once
             self._change_idx, change_vals, offset_vals = _runs_readback(
-                self.array, self.layout)
+                self.array, self.layout, self.change_bound)
+            self.change_bound = self._change_idx.shape[0]
             self._set_gather_map(self._change_idx, change_vals, offset_vals)
 
         def gather(all_idx: np.ndarray) -> np.ndarray:

@@ -129,6 +129,7 @@ class DeltaAccumulator(_Folding):
         self.layout = layout
         self.flank_len = flank_len
         self.delta = torch.zeros(layout.total_slots, dtype=torch.int32, device=device)
+        self.rows = 0  # scattered so far: ``from_delta``'s bound on its boundaries
 
     def add_chunk(self, kv, tid, start, end) -> None:
         """Fold one packed chunk (unique names within the chunk) into the
@@ -140,6 +141,7 @@ class DeltaAccumulator(_Folding):
             live = ge > gs
             events += [(gs[live], sign), (ge[live], -sign)]
         scatter_events_into(self.delta, events)
+        self.rows += sum(e[0].shape[0] for e in events)
 
     def take_delta(self) -> torch.Tensor:
         """The accumulated delta; the accumulator lets go of it, so the
@@ -217,6 +219,7 @@ class SweepAccumulator(_Folding):
         self.chunk_slots = min(chunk, self.total)
         self.n_chunks = -(-self.total // self.chunk_slots)
         self._live: dict[int, torch.Tensor] = {}  # chunk -> device delta
+        self._rows: dict[int, int] = {}  # chunk -> rows scattered into it
         self._chunk_events: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         self.frontier = 0  # first chunk not finalized
         self._carry = 0    # depth at the last slot before the frontier
@@ -250,6 +253,7 @@ class SweepAccumulator(_Folding):
             c = int(c_of[lo])
             scatter_events_into(self._chunk_buf(c),
                                 [(pos[lo:hi] - c * self.chunk_slots, val[lo:hi])])
+            self._rows[c] = self._rows.get(c, 0) + hi - lo
 
     def _range_update(self, gs: np.ndarray, ge: np.ndarray, sign: int) -> None:
         """Apply depth ``sign`` over [gs, ge) per row, split at the
@@ -336,7 +340,7 @@ class SweepAccumulator(_Folding):
         delta[:1] += self._carry  # one more event at the chunk's slot 0
         depth = depth_scan(delta)
         del delta
-        idx, vals = chunk_runs(depth, a, self._carry)
+        idx, vals = chunk_runs(depth, a, self._carry, self._rows.pop(c, 0))
         del depth
         if idx.shape[0]:
             self._chunk_events[c] = (idx, vals)

@@ -196,20 +196,55 @@ def compact_flags_torch(x: torch.Tensor, masks) -> list[torch.Tensor]:
     return [torch.nonzero((x & _signed_byte(int(m))) != 0).squeeze(1) for m in masks]
 
 
-def compact_flags(x: torch.Tensor, masks) -> list[torch.Tensor]:
+CAPACITY_FLOOR_BYTES = 64 << 20
+
+
+def capacity_for(bound: int | None, n: int, n_streams: int = 1,
+                 values: bool = False) -> int | None:
+    """A device caller's bound on each count of a compaction over ``n``
+    slots, as the capacity to pass it; None (the kernel counts first) where
+    the buffers it would size, 8 B an index per stream and 4 B a run depth
+    (``values``), pass an eighth of a byte per slot or
+    ``CAPACITY_FLOOR_BYTES``, whichever is more.  A bound is the scatter
+    rows plus one, and the rows can outnumber the slots (the flags path
+    holds 2^29 reads and more), so the bound alone could size a buffer of
+    many bytes a slot."""
+    if bound is None:
+        return None
+    size = min(bound, n) * (8 * n_streams + 4 * values)
+    return bound if size <= max(n // 8, CAPACITY_FLOOR_BYTES) else None
+
+
+def _count_overflow(name: str, capacity: int | None, totals) -> None:
+    """The CPU route's side of the kernel's capacity: a call whose total
+    exceeds the capacity counts in ``kernels.RELAUNCHES`` as it does on the
+    card."""
+    if capacity is not None and max(totals, default=0) > capacity:
+        kernels.RELAUNCHES[name] += 1
+
+
+def compact_flags(x: torch.Tensor, masks, capacity: int | None = None) -> list[torch.Tensor]:
     """Ascending int64 indices of the slots of a 1-D int8 tensor where
     ``(x & m) != 0``, one tensor per mask (1 to 3 masks, each 1-255), each
     exactly as long as its count.  A bool bitmap is this with mask 1 on
-    ``bits.view(torch.int8)``.  The counts cost one host sync."""
+    ``bits.view(torch.int8)``.  The counts cost one host sync.
+
+    ``capacity`` is the caller's bound on every count: the kernel writes
+    into buffers of that size and launches again at the exact size where a
+    count exceeds it (``kernels.RELAUNCHES``); without one it counts first.
+    """
     masks = tuple(int(m) for m in masks)
     if x.dtype != torch.int8 or x.dim() != 1:
         raise ValueError(f"compact_flags: expected a 1-D int8 tensor, got {x.dtype} "
                          f"of shape {tuple(x.shape)}")
     if not 1 <= len(masks) <= 3 or not all(1 <= m <= 255 for m in masks):
         raise ValueError(f"compact_flags: expected 1 to 3 masks in 1..255, got {masks}")
+    capacity = kernels.check_capacity(capacity)
     if _route(x):
-        return compact_flags_torch(x, masks)
-    return kernels.launch_compact_flags(x, masks)
+        out = compact_flags_torch(x, masks)
+        _count_overflow("compact_flags", capacity, [o.shape[0] for o in out])
+        return out
+    return kernels.launch_compact_flags(x, masks, capacity)
 
 
 def compact_runs_torch(depth: torch.Tensor, carry: int | None = None):
@@ -222,15 +257,20 @@ def compact_runs_torch(depth: torch.Tensor, carry: int | None = None):
     return idx, depth[idx]
 
 
-def compact_runs(depth: torch.Tensor, carry: int | None = None):
+def compact_runs(depth: torch.Tensor, carry: int | None = None,
+                 capacity: int | None = None):
     """(int64 indices, int32 depths) of the run boundaries of a 1-D int32
     depth: ``depth[i] != depth[i-1]``, slot 0 compared against ``carry``
     (the depth just before it), or always a boundary when ``carry`` is
     None; each boundary with the depth of its run.  Exactly sized; the
-    count costs one host sync."""
+    count costs one host sync.  ``capacity`` bounds the count as in
+    ``compact_flags``."""
     if depth.dtype != torch.int32 or depth.dim() != 1:
         raise ValueError(f"compact_runs: expected a 1-D int32 tensor, got {depth.dtype} "
                          f"of shape {tuple(depth.shape)}")
+    capacity = kernels.check_capacity(capacity)
     if _route(depth):
-        return compact_runs_torch(depth, carry)
-    return kernels.launch_compact_runs(depth, carry)
+        idx, vals = compact_runs_torch(depth, carry)
+        _count_overflow("compact_runs", capacity, [idx.shape[0]])
+        return idx, vals
+    return kernels.launch_compact_runs(depth, carry, capacity)

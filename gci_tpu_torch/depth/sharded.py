@@ -38,7 +38,7 @@ from gci_tpu_torch.depth.device import (
     sharded_interval_edges,
     sharded_runs,
 )
-from gci_tpu_torch.depth.fused import _valid_intervals
+from gci_tpu_torch.depth.fused import _event_rows, _valid_intervals
 from gci_tpu_torch.parallel import distributed
 from gci_tpu_torch.parallel.mesh import Mesh, make_mesh
 
@@ -147,12 +147,16 @@ class ShardedDepth(ResidentDepth):
     """
 
     def __init__(self, mesh: Mesh, layout: GenomeLayout, shards: dict[int, torch.Tensor],
-                 pad_total: int):
+                 pad_total: int, change_bound: int | None = None):
         self._valid_cache: dict[int, dict] = {}
         self.mesh = mesh
         self.layout = layout
         self.shards = shards
         self.pad_total = pad_total
+        # at most this many run boundaries in any one shard (its slot 0
+        # included), the capacity of the shards' compactions; None where
+        # not known
+        self.change_bound = change_bound
         self._events = None  # lazy host event-space view
 
     # ------------------------------------------------------------ construct
@@ -183,8 +187,10 @@ class ShardedDepth(ResidentDepth):
         packed = pack_read_deltas_sharded(
             layout, target_id[sl], start[sl], end[sl], flank_len, shard
         )
+        # a shard's boundaries fall on its slot 0 or where one of the n
+        # reads, on any process, starts or stops
         return cls(mesh, layout, sharded_depth(mesh, pad_total, packed, n, first_row=lo),
-                   pad_total)
+                   pad_total, 2 * n + 1)
 
     # ------------------------------------------------------------------ ops
     def mask_gaps(self, gaps: dict[str, list[tuple[int, int]]]) -> "ShardedDepth":
@@ -193,20 +199,23 @@ class ShardedDepth(ResidentDepth):
         if gs.shape[0] == 0:
             return self
         marks = _interval_marks(self.mesh, self.pad_total, gs, ge)
+        bound = self.change_bound
         return ShardedDepth(
             self.mesh, self.layout,
             {g: torch.where(marks.pop(g) > 0, 0, x) for g, x in self.shards.items()},
-            self.pad_total,
+            self.pad_total, None if bound is None else bound + 2 * gs.shape[0],
         )
 
     def maximum(self, other: "ShardedDepth") -> "ShardedDepth":
         """Per-base two-type max, on the devices (GCI.py:332-353)."""
         if self.pad_total != other.pad_total:
             raise ValueError("two-type max of depths over different layouts")
+        bound = (None if self.change_bound is None or other.change_bound is None
+                 else self.change_bound + other.change_bound)
         return ShardedDepth(
             self.mesh, self.layout,
             {g: torch.maximum(x, other.shards[g]) for g, x in self.shards.items()},
-            self.pad_total,
+            self.pad_total, bound,
         )
 
     def _valid_marks(self, flank_len: int) -> dict[int, torch.Tensor]:
@@ -236,7 +245,11 @@ class ShardedDepth(ResidentDepth):
         # one edge byte per shard (bit0 rise, bit1 fall): one compaction
         edges = {g: rise.pop(g).view(torch.int8) + fall.pop(g).view(torch.int8) * 2
                  for g in list(rise)}
-        res = sharded_compact_gather(edges, (1, 2))
+        # an edge falls on a run boundary or on a scan-window border
+        bound = self.change_bound
+        if bound is not None:
+            bound += _event_rows(self.layout, 0, None, flank_len)
+        res = sharded_compact_gather(edges, (1, 2), bound)
         del edges
         rise_idx = _global_indices(self.mesh, self.pad_total, res, 0)
         fall_idx = _global_indices(self.mesh, self.pad_total, res, 1)
@@ -260,7 +273,8 @@ class ShardedDepth(ResidentDepth):
         shard = self.pad_total // gp
         o_shard = offsets // shard
         res = sharded_runs(self.mesh, self.shards,
-                           {g: offsets[o_shard == g] % shard for g in self.shards})
+                           {g: offsets[o_shard == g] % shard for g in self.shards},
+                           self.change_bound)
         idx = _global_indices(self.mesh, self.pad_total, res, 0)
         vals = np.concatenate([res[g][1] for g in range(gp)])
         offset_vals = np.empty(offsets.shape[0], np.int64)

@@ -39,13 +39,14 @@ import torch
 from gci_tpu_torch.depth.accum import GenomeLayout, clamp_read_intervals
 from gci_tpu_torch.depth.base import events_from_change_indices
 from gci_tpu_torch.depth.device import scatter_events
-from gci_tpu_torch.depth.scan import compact_runs, depth_scan
+from gci_tpu_torch.depth.scan import capacity_for, compact_runs, depth_scan
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
 
 # Slots per chunk, read at call time so a caller can lower it.  A chunk of
 # 2^28 slots holds at most 8 B/slot on the card (the delta and its depth at
-# the scan; the compaction after it holds no per-slot buffer), about 2 GiB,
+# the scan; the compaction after it, beside the depth alone, sizes its
+# buffers within ``scan.capacity_for``'s limit, 64 MiB here), about 2 GiB,
 # and each chunk pays two host syncs (its boundary count, its readback),
 # which at this size are small beside the chunk's own passes over its 2^28
 # slots.
@@ -85,10 +86,11 @@ def _iter_depth_chunks(
     chunk_slots: int,
     device: torch.device,
 ):
-    """Yield ``(a, b, depth, carry)`` per chunk: ``depth`` is the int32
-    depth of global slots ``[a, b)`` on ``device``, ``carry`` the depth at
-    slot ``a - 1`` (0 for the first chunk).  A consumer drops ``depth``
-    before it asks for the next chunk, so one chunk lives at a time."""
+    """Yield ``(a, b, depth, carry, rows)`` per chunk: ``depth`` is the
+    int32 depth of global slots ``[a, b)`` on ``device``, ``carry`` the
+    depth at slot ``a - 1`` (0 for the first chunk), ``rows`` the read
+    events scattered into it.  A consumer drops ``depth`` before it asks for
+    the next chunk, so one chunk lives at a time."""
     gs, ge = _sorted_events(layout, target_id, start, end, flank_len)
     n_chunks, bounds, gs_lo, gs_hi, ge_lo, ge_hi = _chunk_plan(
         layout.total_slots, gs, ge, chunk_slots
@@ -102,7 +104,7 @@ def _iter_depth_chunks(
             (ge[ge_lo[c]:ge_hi[c]] - a, -1),
             ((0,), carry),
         ]))
-        yield a, b, depth, carry
+        yield a, b, depth, carry, int(gs_hi[c] - gs_lo[c] + ge_hi[c] - ge_lo[c])
         del depth  # before the next chunk's delta is allocated
 
 
@@ -119,7 +121,7 @@ def accumulate_depth_streamed(
     """Flat per-slot int32 depth on the host, computed chunk by chunk on
     ``device`` (``CHUNK_SLOTS`` per chunk unless ``chunk_slots`` is given)."""
     out = np.empty(layout.total_slots, dtype=np.int32)
-    for a, b, depth, _ in _iter_depth_chunks(
+    for a, b, depth, _, _ in _iter_depth_chunks(
         layout, target_id, start, end, flank_len,
         CHUNK_SLOTS if chunk_slots is None else chunk_slots, device,
     ):
@@ -145,16 +147,16 @@ def events_from_reads_streamed(
     compacted on the card and read back.
     """
     runs = []
-    for a, _, depth, carry in _iter_depth_chunks(
+    for a, _, depth, carry, rows in _iter_depth_chunks(
         layout, target_id, start, end, flank_len,
         CHUNK_SLOTS if chunk_slots is None else chunk_slots, device,
     ):
-        runs.append(chunk_runs(depth, a, carry))
+        runs.append(chunk_runs(depth, a, carry, rows))
         del depth
     return events_from_runs(layout, runs)
 
 
-def chunk_runs(depth: torch.Tensor, a: int, carry: int):
+def chunk_runs(depth: torch.Tensor, a: int, carry: int, rows: int | None = None):
     """(global slots, depths) of the run boundaries of one chunk's depth,
     both int64 on the host, each boundary with the depth of its run.
 
@@ -163,9 +165,12 @@ def chunk_runs(depth: torch.Tensor, a: int, carry: int):
     carry (the first chunk's slot 0 is always a boundary), so a run across
     a chunk border makes no boundary; it writes each boundary's depth
     beside its index, and both come back in one transfer after the count's
-    host sync.
+    host sync.  ``rows``, the events scattered into the chunk, bounds its
+    boundaries: one falls only on an event's slot or at slot 0
+    (``capacity_for`` makes that bound the compaction's capacity).
     """
-    idx, vals = compact_runs(depth, carry if a > 0 else None)
+    capacity = capacity_for(None if rows is None else rows + 1, depth.shape[0], 1, True)
+    idx, vals = compact_runs(depth, carry if a > 0 else None, capacity)
     got = torch.cat([idx, vals.to(torch.int64)]).cpu().numpy()
     n = idx.shape[0]
     return got[:n] + a, got[n:]

@@ -7,12 +7,15 @@ source, so an edited source rebuilds and an unchanged one loads at once.
 Nothing builds or loads on import: the first launch on a CUDA tensor does it.
 
 Each launcher counts its launches in ``LAUNCHES`` (one plain integer per
-kernel), so a run can show which kernels its main path went through.
+kernel), so a run can show which kernels its main path went through.  The
+compaction also counts in ``RELAUNCHES`` each call that had to launch again
+because a total exceeded the capacity its caller gave.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import numbers
 import os
 import shutil
 import subprocess
@@ -40,14 +43,18 @@ LAUNCHES = {
     "compact_flags": 0,
     "compact_runs": 0,
 }
+# calls of the compaction launched a second time at the exact size (a total
+# past the caller's capacity, or no capacity given)
+RELAUNCHES = {"compact_flags": 0, "compact_runs": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, RELAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def find_nvcc() -> str:
@@ -97,10 +104,8 @@ _SIGNATURES = {
     "gci_flags_scan": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I, _P],
     "gci_edges_scan": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I, _P],
     "gci_masked_scan": [_P] * 8 + [_I64, _I32, _I32, _I, _P],
-    "gci_compact_flags_count": [_P, ctypes.c_uint32, _I, _P, _I64, _I, _P],
-    "gci_compact_flags_write": [_P, ctypes.c_uint32, _I, _P, _I64, _P, _P, _P, _I, _P],
-    "gci_compact_runs_count": [_P, _I32, _I, _P, _I64, _I, _P],
-    "gci_compact_runs_write": [_P, _I32, _I, _P, _I64, _P, _P, _I, _P],
+    "gci_compact_flags": [_P, ctypes.c_uint32, _I, _P, _I64, _I64, _P, _P, _P, _I, _P, _P],
+    "gci_compact_runs": [_P, _I32, _I, _P, _I64, _I64, _P, _P, _I, _P, _P],
 }
 
 
@@ -116,10 +121,6 @@ def load() -> ctypes.CDLL:
                          "gci_compact_flags_tile_slots", "gci_compact_runs_tile_slots"):
                 getattr(lib, name).restype = ctypes.c_int
                 getattr(lib, name).argtypes = []
-            lib.gci_compact_flags_scratch_words.restype = ctypes.c_int64
-            lib.gci_compact_flags_scratch_words.argtypes = [_I64, _I]
-            lib.gci_compact_runs_scratch_words.restype = ctypes.c_int64
-            lib.gci_compact_runs_scratch_words.argtypes = [_I64]
             lib.gci_cuda_error_string.restype = ctypes.c_char_p
             lib.gci_cuda_error_string.argtypes = [ctypes.c_int]
             for name, argtypes in _SIGNATURES.items():
@@ -268,74 +269,88 @@ def launch_masked_scan(delta: torch.Tensor, gap: torch.Tensor, valid: torch.Tens
     return depth, rise, fall, change
 
 
-def _compact(name: str, x: torch.Tensor, lib: ctypes.CDLL, n_streams: int,
-             tile_slots: int, scratch_words: int, count, write):
-    """The compaction's passes over x: ``count(scratch, stream)`` runs the
-    count and carry passes over the per-tile scratch, the host reads the
-    ``n_streams`` totals (the call's one sync), and ``write(scratch, outs,
-    stream)`` writes the int64 indices into ``outs``, exactly sized, unless
-    every total is 0.  Counts one launch of ``name``; returns ``outs``."""
-    tiles = -(-x.shape[0] // tile_slots)
-    scratch = torch.empty(scratch_words, dtype=torch.int64, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _raise_on(lib, name, count(scratch.data_ptr(), stream))
-    LAUNCHES[name] += 1
-    # per stream a row of tiles + 1 words, its total last
-    totals = scratch[: n_streams * (tiles + 1)].view(n_streams, tiles + 1)[:, -1].tolist()
-    outs = [torch.empty(c, dtype=torch.int64, device=x.device) for c in totals]
-    if any(totals):
-        _raise_on(lib, name, write(scratch.data_ptr(), outs, stream))
+def check_capacity(capacity) -> int | None:
+    """The compaction's capacity: None, or a count of entries >= 0."""
+    if capacity is None:
+        return None
+    if isinstance(capacity, bool) or not isinstance(capacity, numbers.Integral) or capacity < 0:
+        raise ValueError(f"capacity: expected None or an integer >= 0, got {capacity!r}")
+    return int(capacity)
+
+
+def _compact(name: str, x: torch.Tensor, n_streams: int, tile_slots: int,
+             capacity: int | None, values: bool, entry, *args) -> list[torch.Tensor]:
+    """One compaction of x by C entry ``entry`` (``args`` before its
+    scratch) into buffers of ``capacity`` entries a stream (0 without one;
+    never more than x's slots), and (``values``) as many int32 values.  The
+    entry zeroes the scratch, launches, and returns the exact totals after
+    the call's one host sync; where one exceeds the capacity the kernel is
+    launched once more at the exact sizes and the call is counted in
+    ``RELAUNCHES``.  Counts each launch of ``name``; returns each stream's
+    indices (then the values), exactly sized views into one allocation."""
+    n = x.shape[0]
+    words = n_streams * (-(-n // tile_slots) + 1)
+    # the current stream's handle; torch.cuda.current_stream() costs ~8 us
+    # of host time a call, a fifth of a small call's
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    totals = (ctypes.c_int64 * n_streams)()
+    sizes = [min(capacity or 0, n)] * n_streams
+    while True:
+        # the scratch, then each stream's indices, then the values (two
+        # int32 a word)
+        starts = [words]
+        for c in sizes:
+            starts.append(starts[-1] + c)
+        buf = torch.empty(starts[-1] + ((sizes[0] + 1) // 2 if values else 0),
+                          dtype=torch.int64, device=x.device)
+        ptr = buf.data_ptr()
+        ptrs = [ptr + 8 * a for a in starts[: n_streams + values]]
+        if not values:  # the flag entry takes three index pointers
+            ptrs += [None] * (3 - n_streams)
+        rc = entry(*args, ptr, n, max(sizes), *ptrs, x.device.index, stream, totals)
+        if rc:
+            _raise_on(load(), name, rc)
+        LAUNCHES[name] += 1
+        got = list(totals)
+        if all(t <= c for t, c in zip(got, sizes)):
+            break
+        RELAUNCHES[name] += 1
+        sizes = got
+    outs = [buf[a:a + t] for a, t in zip(starts, got)]
+    if values:
+        outs.append(buf[starts[-1]:].view(torch.int32)[: got[0]])
     return outs
 
 
-def launch_compact_flags(x: torch.Tensor, masks) -> list[torch.Tensor]:
+def launch_compact_flags(x: torch.Tensor, masks, capacity: int | None = None
+                         ) -> list[torch.Tensor]:
     """Ascending int64 indices of the slots where ``(x & m) != 0``, one
-    tensor per mask (1 to 3 masks, each 1-255), of a 16-byte aligned int8
-    CUDA tensor (``gci_compact_flags_count`` and ``_write``)."""
+    tensor per mask (1 to 3 masks, each 1-255, as ``depth.scan`` checks
+    them), of a 16-byte aligned int8 CUDA tensor (``gci_compact_flags``),
+    each exactly as long as its count, written into a buffer of
+    ``capacity`` entries."""
     _check_stream(x, "compact_flags", torch.int8, align=16)
-    masks = [int(m) for m in masks]
-    if not 1 <= len(masks) <= 3 or not all(1 <= m <= 255 for m in masks):
-        raise ValueError(f"compact_flags: expected 1 to 3 masks in 1..255, got {masks}")
-    nm, n, dev = len(masks), x.shape[0], x.device.index
-    if n == 0:
+    if x.shape[0] == 0:
         return [torch.empty(0, dtype=torch.int64, device=x.device) for _ in masks]
     lib = load()
-    packed = sum(m << (8 * s) for s, m in enumerate(masks))
-
-    def count(scratch, stream):
-        return lib.gci_compact_flags_count(x.data_ptr(), packed, nm, scratch, n, dev, stream)
-
-    def write(scratch, outs, stream):
-        ptrs = [o.data_ptr() for o in outs] + [None] * (3 - nm)
-        return lib.gci_compact_flags_write(x.data_ptr(), packed, nm, scratch, n, *ptrs,
-                                           dev, stream)
-
-    return _compact("compact_flags", x, lib, nm, lib.gci_compact_flags_tile_slots(),
-                    lib.gci_compact_flags_scratch_words(n, nm), count, write)
+    packed = sum(int(m) << (8 * s) for s, m in enumerate(masks))
+    return _compact("compact_flags", x, len(masks), lib.gci_compact_flags_tile_slots(),
+                    capacity, False, lib.gci_compact_flags, x.data_ptr(), packed, len(masks))
 
 
-def launch_compact_runs(depth: torch.Tensor, carry: int | None):
+def launch_compact_runs(depth: torch.Tensor, carry: int | None,
+                        capacity: int | None = None):
     """(int64 indices, int32 depths) of the run boundaries of a 16-byte
     aligned int32 CUDA tensor: ``depth[i] != depth[i-1]``, slot 0 against
     ``carry``, or always a boundary when ``carry`` is None
-    (``gci_compact_runs_count`` and ``_write``)."""
+    (``gci_compact_runs``), each exactly as long as the count, written into
+    buffers of ``capacity`` entries."""
     _check_stream(depth, "compact_runs", torch.int32)
-    n, dev = depth.shape[0], depth.device.index
-    vals = torch.empty(0, dtype=torch.int32, device=depth.device)
-    if n == 0:
-        return torch.empty(0, dtype=torch.int64, device=depth.device), vals
+    if depth.shape[0] == 0:
+        return (torch.empty(0, dtype=torch.int64, device=depth.device),
+                torch.empty(0, dtype=torch.int32, device=depth.device))
     lib = load()
     has, c = (0, 0) if carry is None else (1, int(carry))
-
-    def count(scratch, stream):
-        return lib.gci_compact_runs_count(depth.data_ptr(), c, has, scratch, n, dev, stream)
-
-    def write(scratch, outs, stream):
-        nonlocal vals
-        vals = torch.empty(outs[0].shape[0], dtype=torch.int32, device=depth.device)
-        return lib.gci_compact_runs_write(depth.data_ptr(), c, has, scratch, n,
-                                          outs[0].data_ptr(), vals.data_ptr(), dev, stream)
-
-    (idx,) = _compact("compact_runs", depth, lib, 1, lib.gci_compact_runs_tile_slots(),
-                      lib.gci_compact_runs_scratch_words(n), count, write)
+    idx, vals = _compact("compact_runs", depth, 1, lib.gci_compact_runs_tile_slots(),
+                         capacity, True, lib.gci_compact_runs, depth.data_ptr(), c, has)
     return idx, vals

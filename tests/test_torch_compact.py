@@ -6,8 +6,10 @@ prefix sum and ``searchsorted`` to power-of-two sizes (``compact_indices``,
 ``_batched_flags_readback``, ``_batched_edge_readback`` on JAX's CPU
 backend, ``make_sharded_compact_gather_fn`` on the 8-device CPU mesh).  Both
 get the same seeded numpy inputs; every comparison is exact.  The
-``cuda``-marked cases hold each kernel form against its plain form across
-tile borders, and skip without a card.
+capacity every device caller gives the compaction is held against its
+counts on each path.  The ``cuda``-marked cases hold each kernel form
+against its plain form across tile borders, at, past and without a
+capacity, and skip without a card.
 """
 import numpy as np
 import pytest
@@ -22,19 +24,21 @@ from gci_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from gci_tpu_torch import kernels
 from gci_tpu_torch.depth import device, fused, streamed
 from gci_tpu_torch.depth.scan import (
+    CAPACITY_FLOOR_BYTES,
+    capacity_for,
     compact_flags,
     compact_flags_torch,
     compact_runs,
     compact_runs_torch,
 )
 from gci_tpu_torch.parallel.mesh import make_mesh
+from gci_tpu_torch.pipeline import run_gci
 
-# the kernels' tiles: 32,768 slots (flag form) and 8,192 (run form); N is a
-# multiple of neither, nor of a warp's span or a column.  A tile with at most
-# 256 (flag form) or 64 (run form) set slots keeps them in its scratch, a
-# denser one is read twice: "sparse" keeps, "random" and "dense" do not,
-# "mixed" does both in one call.
-FLAG_TILE, RUN_TILE = 32_768, 8_192
+# the kernel's tiles: 16,384 slots (flag form) and 8,192 (run form); N is a
+# multiple of neither, nor of a warp's span or a column.  The bitmaps range
+# from no set slot in a tile ("sparse") to every slot set ("all"), "mixed"
+# both in one call.
+FLAG_TILE, RUN_TILE = 16_384, 8_192
 N = 2 * FLAG_TILE + 4_097 + 5
 KINDS = ["empty", "all", "single", "ends", "sparse", "random", "dense", "mixed"]
 CPU = torch.device("cpu")
@@ -328,6 +332,192 @@ def test_entries_refuse_devices_without_kernels():
 
 
 # ---------------------------------------------------------------------------
+# capacities
+# ---------------------------------------------------------------------------
+
+def _flags_call(x, capacity):
+    return compact_flags(x, (1, 0x80), capacity)
+
+
+def _runs_call(x, capacity):
+    return compact_runs(x.to(torch.int32), 3, capacity)
+
+
+@pytest.mark.parametrize("capacity", [-1, 2.5, "8", True])
+@pytest.mark.parametrize("call", [_flags_call, _runs_call])
+def test_entries_refuse_bad_capacities(call, capacity):
+    with pytest.raises(ValueError):
+        call(torch.zeros(8, dtype=torch.int8), capacity)
+
+
+@pytest.mark.parametrize("form", ["flags", "runs"])
+def test_cpu_route_counts_an_overflow(rng, form):
+    """On the CPU a capacity below a count is counted in RELAUNCHES as the
+    card's second launch is, one at or above it or none is not; the result
+    is the plain one either way."""
+    if form == "flags":
+        x = torch.from_numpy(_truth_bytes(rng, _on(rng, "random")))
+        call, plain = (lambda c: compact_flags(x, (1, 0x80), c),
+                       lambda: compact_flags_torch(x, (1, 0x80)))
+        name, top = "compact_flags", max(w.shape[0] for w in plain())
+    else:
+        x = torch.from_numpy(_runs(rng))
+        call, plain = lambda c: compact_runs(x, 3, c), lambda: compact_runs_torch(x, 3)
+        name, top = "compact_runs", plain()[0].shape[0]
+    for capacity, relaunched in ((top, 0), (top + 5, 0), (None, 0), (top - 1, 1), (0, 1)):
+        before = kernels.RELAUNCHES[name]
+        got = call(capacity)
+        assert kernels.RELAUNCHES[name] - before == relaunched, capacity
+        assert all(torch.equal(g, w) for g, w in zip(got, plain(), strict=True))
+
+
+# a small dual-type run with N gaps and regions, for every device path
+BOUND_REFS, BOUND_LENS = ["chrA", "chrB", "chrC"], [30_000, 20_000, 4_096]
+
+
+@pytest.fixture(scope="module")
+def bound_inputs(tmp_path_factory):
+    from tests.fixtures import make_bam, make_fasta, random_reads
+
+    rng = np.random.default_rng(0xB0D)
+    d = tmp_path_factory.mktemp("bounds")
+    seqs = []
+    for name, length in zip(BOUND_REFS, BOUND_LENS):
+        seq = "".join(rng.choice(list("ACGT"), size=length))
+        if name == "chrA":
+            seq = seq[:12_000] + "N" * 400 + seq[12_400:]
+        seqs.append((name, seq))
+    paths = {"ref": str(d / "ref.fa"), "hifi": str(d / "hifi.bam"), "nano": str(d / "nano.bam"),
+             "regions": str(d / "regions.bed")}
+    make_fasta(paths["ref"], seqs)
+    make_bam(paths["hifi"], BOUND_REFS, BOUND_LENS,
+             random_reads(rng, BOUND_REFS, BOUND_LENS, 900, name_prefix="h"))
+    make_bam(paths["nano"], BOUND_REFS, BOUND_LENS,
+             random_reads(rng, BOUND_REFS, BOUND_LENS, 700, name_prefix="n"))
+    with open(paths["regions"], "w") as f:
+        f.write("chrA\t1000\t15000\nchrB\t0\t20000\n")
+    return paths
+
+
+def _overlap_run(paths, acc_kind):
+    """Both BAMs through ``feed_bam`` (8 KiB chunks) into an accumulator,
+    then the value and the host view a run writes."""
+    from gci_tpu_torch.depth import overlap
+    from gci_tpu_torch.io.fasta import scan_fasta
+
+    layout = fused.GenomeLayout.from_targets(dict(zip(BOUND_REFS, BOUND_LENS)))
+    gaps = scan_fasta(paths["ref"])[1]
+    for bam in (paths["hifi"], paths["nano"]):
+        if acc_kind == "delta":
+            acc = overlap.DeltaAccumulator(layout, 15, device=CPU)
+            overlap.feed_bam(acc, bam, threads=1, chunk_bytes=8 << 10)
+            dd = fused.DeviceDepth.from_delta(layout, acc.take_delta(), 15, gaps=gaps,
+                                              issue_range=(-1, 1), rows=acc.rows)
+            dd.to_events()
+            masked = dd.mask_gaps(gaps)
+            masked.collapse_dict(-1, 1, 15)
+            masked.maximum(dd).to_events()
+        else:
+            acc = overlap.SweepAccumulator(layout, 15, 7_001, device=CPU)
+            overlap.feed_bam(acc, bam, threads=1, chunk_bytes=8 << 10)
+            acc.finish()
+
+
+@pytest.mark.parametrize("path", ["packed", "flags", "streamed", "sharded",
+                                  "overlap_delta", "overlap_sweep"])
+def test_device_callers_bounds_hold(bound_inputs, tmp_path, monkeypatch, path):
+    """Every compaction a device path makes gets a capacity from its caller,
+    and every count is within it: RELAUNCHES stays 0 on the CPU route, which
+    counts a count past its capacity as the card's relaunch."""
+    capacities = []
+    check = kernels.check_capacity
+    monkeypatch.setattr(kernels, "check_capacity",
+                        lambda c: (capacities.append(c), check(c))[1])
+    if path == "flags":
+        monkeypatch.setattr(fused, "PACKED_DEPTH_LIMIT", 1)
+    if path == "streamed":
+        monkeypatch.setattr(streamed, "CHUNK_SLOTS", 7_001)
+    kernels.reset_launch_counts()
+    if path.startswith("overlap"):
+        _overlap_run(bound_inputs, path.partition("_")[2])
+    else:
+        run_gci(hifi=[bound_inputs["hifi"]], nano=[bound_inputs["nano"]],
+                reference=bound_inputs["ref"], regions=bound_inputs["regions"],
+                directory=str(tmp_path), prefix="B", threshold=1, torch_device="cpu",
+                depth_backend="sharded" if path == "sharded" else
+                "streamed" if path == "streamed" else "device",
+                mesh="2,4" if path == "sharded" else None)
+    assert capacities and None not in capacities
+    assert kernels.RELAUNCHES == {"compact_flags": 0, "compact_runs": 0}
+
+
+MH63_SLOTS, T2T_SLOTS = 395_765_512, 3_100_000_024
+FLAGS_PATH_ROWS = 2 * (1 << 29) + 1  # the scatter rows of 2^29 reads, plus one
+
+
+@pytest.mark.parametrize("n, bound, streams, values, want", [
+    (MH63_SLOTS, 400_001, 3, False, 400_001),  # the smoke's packed path
+    (MH63_SLOTS, 400_001, 1, True, 400_001),
+    (MH63_SLOTS, FLAGS_PATH_ROWS, 3, False, None),  # the flags path
+    (T2T_SLOTS, FLAGS_PATH_ROWS, 3, False, None),
+    (T2T_SLOTS, FLAGS_PATH_ROWS, 2, False, None),
+    (T2T_SLOTS, 16_000_001, 3, False, 16_000_001),  # 8M reads: 0.124 B/slot
+    (T2T_SLOTS, 24_000_001, 3, False, None),  # 12M reads: 0.186 B/slot
+    (1 << 28, 2_000_001, 1, True, 2_000_001),  # a streamed chunk, under 64 MiB
+    (1 << 28, 6_000_001, 1, True, None),
+    (1_000, 5_000, 3, False, 5_000),  # past the slots, under the floor
+    (MH63_SLOTS, None, 3, False, None),
+])
+def test_capacity_for_limits_the_buffers(n, bound, streams, values, want):
+    """A bound becomes the capacity while the buffers it sizes stay within
+    an eighth of a byte a slot or 64 MiB, else the kernel counts first."""
+    assert capacity_for(bound, n, streams, values) == want
+    if want is not None:
+        size = min(want, n) * (8 * streams + 4 * values)
+        assert size <= max(n / 8, CAPACITY_FLOOR_BYTES)
+
+
+def test_flags_path_bound_of_many_reads_counts_first(bound_inputs, monkeypatch):
+    """With the scatter rows of 2^29 reads (the least the flags path
+    takes), the flags path's compaction counts first instead of sizing its
+    buffers by that bound, and the value is the one the small bound gives.
+    The genome is small, so the 64 MiB floor is set to 0: the limit is then
+    an eighth of a byte a slot, as on a genome of 2^29 slots and more."""
+    from gci_tpu_torch.io.fasta import scan_fasta
+
+    layout = fused.GenomeLayout.from_targets(dict(zip(BOUND_REFS, BOUND_LENS)))
+    gaps = scan_fasta(bound_inputs["ref"])[1]
+    rng = np.random.default_rng(0xF1A6)
+    tid = rng.integers(0, len(BOUND_REFS), 800).astype(np.int32)
+    start = rng.integers(0, 3_000, 800).astype(np.int64)
+    end = start + rng.integers(40, 900, 800)
+    monkeypatch.setattr(fused, "PACKED_DEPTH_LIMIT", 1)
+
+    def run():
+        dd = fused.DeviceDepth.from_reads(layout, tid, start, end, 15, gaps=gaps,
+                                          issue_range=(-1, 1), device=CPU)
+        masked = dd.mask_gaps(gaps)
+        return dd, masked.collapse_dict(-1, 1, 15), masked.maximum(dd).to_events()
+
+    want = run()
+    rows = fused._event_rows
+    monkeypatch.setattr(fused, "_event_rows",
+                        lambda layout, n_reads, *a: rows(layout, n_reads, *a)
+                        + (FLAGS_PATH_ROWS - 1 if n_reads else 0))
+    monkeypatch.setattr("gci_tpu_torch.depth.scan.CAPACITY_FLOOR_BYTES", 0)
+    capacities = []
+    check = kernels.check_capacity
+    monkeypatch.setattr(kernels, "check_capacity",
+                        lambda c: (capacities.append(c), check(c))[1])
+    got = run()
+    assert got[0].gap_bit == 1
+    assert capacities and capacities[0] is None
+    assert got[1] == want[1]
+    for t in want[2]:
+        np.testing.assert_array_equal(got[2][t].materialize(), want[2][t].materialize())
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -350,27 +540,30 @@ def test_cuda_flag_form_matches_plain(rng, cuda_device, n, kind):
     x = torch.from_numpy(_truth_bytes(rng, _on(rng, kind, n)))
     x[torch.from_numpy(rng.random(n) < 0.1)] |= 2
     for masks in ((0xFF,), (1, 0x80), (2, 0x40, 0xFF)):
+        want = compact_flags_torch(x, masks)
         before = kernels.LAUNCHES["compact_flags"]
-        got = compact_flags(x.to(cuda_device), masks)
+        got = compact_flags(x.to(cuda_device), masks, max(w.shape[0] for w in want))
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["compact_flags"] == before + 1
-        for g, w in zip(got, compact_flags_torch(x, masks), strict=True):
+        for g, w in zip(got, want, strict=True):
             assert g.device.type == "cuda" and g.dtype == torch.int64
             assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", CUDA_SIZES)
-@pytest.mark.parametrize("shape", ["runs", "sparse", "mixed", "dense", "constant"])
+@pytest.mark.parametrize("shape", ["runs", "sparse", "mixed", "dense", "constant",
+                                   "alternating"])
 def test_cuda_run_form_matches_plain(rng, cuda_device, n, shape):
     depth = _depth(rng, shape, n)
     x = torch.from_numpy(depth)
     for carry in (None, int(depth[0]), int(depth[0]) - 1):
+        want = compact_runs_torch(x, carry)
         before = kernels.LAUNCHES["compact_runs"]
-        got = compact_runs(x.to(cuda_device), carry)
+        got = compact_runs(x.to(cuda_device), carry, want[0].shape[0])
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["compact_runs"] == before + 1
-        for g, w in zip(got, compact_runs_torch(x, carry), strict=True):
+        for g, w in zip(got, want, strict=True):
             assert g.device.type == "cuda" and g.dtype == w.dtype
             assert torch.equal(g.cpu(), w)
 
@@ -404,4 +597,58 @@ def test_cuda_compaction_refuses_misaligned_streams(cuda_device):
         compact_flags(x[1:], (1,))
     with pytest.raises(ValueError):
         compact_runs(depth[1:])
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4_097, FLAG_TILE - 1, N])
+@pytest.mark.parametrize("kind", ["single", "random", "all"])
+def test_cuda_capacity_at_past_and_without(rng, cuda_device, n, kind):
+    """A count exactly at capacity takes one launch; one past it, a launch
+    whose stores stop at the capacity and one exact relaunch; no capacity, a
+    counting launch and the exact one.  Every result equals the plain one."""
+    x = torch.from_numpy(_truth_bytes(rng, _on(rng, kind, n)))
+    depth = torch.from_numpy(_depth(rng, "dense" if kind == "all" else "runs", n))
+    for name, call, want in (
+        ("compact_flags", lambda c: compact_flags(x.to(cuda_device), (1, 0xFF), c),
+         compact_flags_torch(x, (1, 0xFF))),
+        ("compact_runs", lambda c: compact_runs(depth.to(cuda_device), None, c),
+         compact_runs_torch(depth, None)),
+    ):
+        top = max(w.shape[0] for w in (want if name == "compact_flags" else want[:1]))
+        # with nothing set, the launch without a capacity is the only one
+        cases = [(top, 1, 0), (top - 1, 2, 1), (None, 2, 1)] if top else [(0, 1, 0),
+                                                                         (None, 1, 0)]
+        for capacity, launches, relaunches in cases:
+            before, again = kernels.LAUNCHES[name], kernels.RELAUNCHES[name]
+            got = call(capacity)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES[name] - before == launches, (name, capacity)
+            assert kernels.RELAUNCHES[name] - again == relaunches, (name, capacity)
+            for g, w in zip(got, want, strict=True):
+                assert torch.equal(g.cpu(), w), (name, capacity)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [513, FLAG_TILE + 1, N])
+def test_cuda_three_masks_one_stream_empty(rng, cuda_device, n):
+    """Masks (1, 0x10, 4) of bytes that never hold bit 4: the middle
+    predicate has no set slot, the others many."""
+    x = torch.from_numpy(_truth_bytes(rng, _on(rng, "dense", n)) & ~np.int8(0x10))
+    want = compact_flags_torch(x, (1, 0x10, 4))
+    assert want[1].shape[0] == 0 and want[0].shape[0] > 0
+    got = compact_flags(x.to(cuda_device), (1, 0x10, 4), max(w.shape[0] for w in want))
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_compaction_refuses_bad_capacities(cuda_device):
+    x = torch.zeros(4_096, dtype=torch.int8, device=cuda_device)
+    before = dict(kernels.LAUNCHES)
+    for capacity in (-1, 2.5, True):
+        with pytest.raises(ValueError):
+            compact_flags(x, (1,), capacity)
+        with pytest.raises(ValueError):
+            compact_runs(x.to(torch.int32), None, capacity)
     assert kernels.LAUNCHES == before
