@@ -91,14 +91,34 @@ Phases, each printing its results:
    run, K2 and the two forms of the compaction must launch exactly
    ``SHARDED_SCANS_PER_SHARD`` times per gp shard and no other kernel at
    all; each prints its wall,
-   stages, peak device memory and host RSS.
+   stages, peak device memory and host RSS;
+10. the remaining helpers on the card: (a) the read-out of a resident
+   delta (``streamed.events_from_delta2d_streamed``): each read type's BAM
+   packed by ``overlap.feed_bam`` into a ``DeltaAccumulator`` at
+   run_filter's default 64 MiB BAM chunk, then read out in chunks, the
+   MH63-shaped inputs in phase 6a's 4 chunks and phase 6b's 3.1 Gbp inputs
+   in 12 chunks of 2^28 slots; each checkpoint (``write_depth_gz``) must
+   equal the events run's of phase 5 or 6b, each type launch exactly one
+   K2 and one run-form compaction per chunk with no relaunch, and the
+   read-out's peak device memory stay within the delta plus
+   ``READOUT_BYTES_PER_CHUNK_SLOT`` per chunk slot (under 16 GB at
+   3.1 Gbp); each prints the pack and read-out walls, both peaks and the
+   host RSS; (b) at MH63 size, ``depth.device.depth_single`` over each
+   type's curated reads against the numpy depth oracle,
+   ``interval_edges`` + ``edges_to_intervals`` at (-1, 0) over the HiFi
+   depth against ``collapse_depth_dict`` of it, ``two_type_max`` of the
+   two depths against ``torch.maximum`` on the host, and
+   ``filters.device.bam_filter_mask_device`` over every record of both
+   BAMs on the card against the same on the CPU (and, for information,
+   how many records it decides otherwise than the float64 host mask).
 
-Launch counts are set to 0 just before each path of phases 4 to 9 runs and
-read just after, and each path of phases 4 to 6, 8 and 9 must have launched
-exactly the kernels counted from its code (``PATH_LAUNCHES``,
-``check_streamed_launches``, ``OVERLAP_CASES``, ``SHARDED_SCANS_PER_SHARD``):
-K2's int8 form none on any path, and no compaction relaunched past its
-caller's capacity.  The script prints one JSON line with each
+Launch counts are set to 0 just before each path of phases 4 to 10 runs and
+read just after, and each path of phases 4 to 6 and 8 to 10 must have
+launched exactly the kernels counted from its code (``PATH_LAUNCHES``,
+``check_streamed_launches``, ``OVERLAP_CASES``, ``SHARDED_SCANS_PER_SHARD``,
+``READOUT_CASES``, ``HELPER_LAUNCHES``): K2's int8 form none on any path,
+and no compaction relaunched past its caller's capacity (the helpers'
+edges, which have no bound, count first: one relaunch).  The script prints one JSON line with each
 kernel's launches on its path and on every path, error, times and bound,
 then as its last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and exits nonzero; so does a machine without CUDA.  Inputs are
@@ -126,11 +146,16 @@ import torch
 
 from gci_tpu_torch import cli, kernels
 from gci_tpu_torch.depth import accum, fused, streamed
-from gci_tpu_torch.depth.accum import GenomeLayout, accumulate_depth_numpy
+from gci_tpu_torch.depth.accum import GenomeLayout, accumulate_depth_numpy, depth_dict_from_flat
 from gci_tpu_torch.depth.device import (
+    build_scan_valid,
     depth_and_edges_fused,
+    depth_single,
+    edges_to_intervals,
+    interval_edges,
     pack_read_deltas,
     scatter_events,
+    two_type_max,
 )
 from gci_tpu_torch.depth.fused import DeviceDepth, flags_for, packed_event_word
 from gci_tpu_torch.depth.scan import (
@@ -149,8 +174,10 @@ from gci_tpu_torch.depth.scan import (
     fused_depth_scan_packed_torch,
     fused_depth_scan_torch,
 )
-from gci_tpu_torch.intervals.collapse import collapse_depth_runs
-from gci_tpu_torch.io.bam import BamStream
+from gci_tpu_torch.filters import bam_filter_mask, dedup_last_wins
+from gci_tpu_torch.filters.device import bam_filter_mask_device
+from gci_tpu_torch.intervals.collapse import collapse_depth_dict, collapse_depth_runs
+from gci_tpu_torch.io.bam import BamStream, read_bam
 from gci_tpu_torch.io.bam_writer import build_record, write_bam
 from gci_tpu_torch.depth.overlap import DeltaAccumulator, SweepAccumulator, feed_bam
 from gci_tpu_torch.io.depth_file import read_depth_gz, read_depth_gz_events, write_depth_gz
@@ -232,6 +259,21 @@ PACK_TO_DEPTH_STAGES = ("bam_pack", "curation", "depth_accumulate", "checkpoint_
 # edge byte of each issue BED
 SHARDED_SCANS_PER_SHARD = {"depth_scan": 8, "compact_runs": 6, "compact_flags": 3}
 SHARDED_MESHES = ((2, 2), (1, 4), (4, 1))  # positions on cuda:0, phase 9b
+# phase 10a: launches_by_path key -> (inputs, chunk slots, chunks) of the
+# read-out of a resident delta; per read type and chunk one K2 (the chunk's
+# depth) and one run-form compaction (its run boundaries)
+READOUT_CASES = {
+    "delta_readout_mh63": ("mh63", MH63_STREAM_CHUNK, 4),
+    "delta_readout_3g": ("t2t", 1 << 28, 12),
+}
+# the read-out's device memory beside the delta, per slot of a chunk: the
+# chunk's depth (4 B), an aligned copy of an unaligned chunk for the scan
+# (4 B), and under 1 B of scan scratch and compaction buffers
+READOUT_BYTES_PER_CHUNK_SLOT = 9
+READOUT_3G_PEAK_LIMIT = 16_000_000_000  # bytes: the 3.1 Gbp delta plus O(chunk)
+# phase 10b: K2 for each type's depth_single; the flag form twice for the
+# edges, which have no bound and count first (one relaunch)
+HELPER_LAUNCHES = {"depth_scan": 2, "compact_flags": 2}
 
 
 def outputs(prefix: str) -> list[str]:
@@ -1509,6 +1551,157 @@ def phase_sharded(paths, work: str, dev: torch.device) -> dict[str, dict[str, in
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 10. the remaining helpers on the card
+# ---------------------------------------------------------------------------
+
+def delta_readout(label: str, layout, bam: str, chunk_slots: int, n_chunks: int,
+                  dev, ckpt: str) -> tuple[dict[str, int], int]:
+    """One BAM through ``feed_bam`` into a ``DeltaAccumulator`` at the
+    default BAM chunk, then ``events_from_delta2d_streamed`` in chunks of
+    ``chunk_slots``, written to ``ckpt``; launch counts set to 0 before the
+    pack and read after the read-out.  Returns the launches and the
+    read-out's peak device bytes above what was allocated before the pack."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    acc = DeltaAccumulator(layout, 15, device=dev)
+    n_bam = feed_bam(acc, bam, threads=8, chunk_bytes=DEFAULT_BAM_CHUNK_BYTES)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pack_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as rss:
+        t2 = time.perf_counter()
+        events = streamed.events_from_delta2d_streamed(layout, acc.take_delta(), chunk_slots,
+                                                       rows=acc.rows)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(kernels.LAUNCHES)
+    check_no_relaunch(label)
+    want = {name: 0 for name in launches}
+    want.update(depth_scan=n_chunks, compact_runs=n_chunks)
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    delta_bytes = 4 * layout.total_slots
+    beside = peak - before - delta_bytes
+    check(beside <= READOUT_BYTES_PER_CHUNK_SLOT * chunk_slots,
+          f"{label}: read-out peak {peak} bytes, {beside} beside the delta, past "
+          f"{READOUT_BYTES_PER_CHUNK_SLOT} B per slot of a {chunk_slots}-slot chunk")
+    t4 = time.perf_counter()
+    write_depth_gz(ckpt, events)
+    t5 = time.perf_counter()
+    log(f"{label}: {n_bam} BAM chunks, {acc.rows} rows, {acc.rows_retracted} retracted; "
+        f"pack {t1 - t0:.3f} s, read-out {t3 - t2:.3f} s in {n_chunks} chunks of "
+        f"{chunk_slots} slots, checkpoint {t5 - t4:.3f} s; launches {launches}")
+    log(f"{label}: read-out peak device memory {peak} bytes ({peak / 2**30:.3f} GiB; "
+        f"{before} allocated before the pack, the delta {delta_bytes}, "
+        f"{beside} beside it: {beside / chunk_slots:.4f} B per chunk slot); pack peak "
+        f"{pack_peak} bytes; host RSS during the read-out {rss.start} bytes at its start, "
+        f"peak {rss.peak}, {rss.peak - rss.start} above the start")
+    return launches, peak - before
+
+
+def phase_delta_readout(inputs, dev) -> dict[str, dict[str, int]]:
+    """10a: each READOUT_CASES genome, both read types, every checkpoint
+    equal to the events run's.  Returns the launches of each type's run."""
+    launches = {}
+    for key, (which, chunk_slots, n_chunks) in READOUT_CASES.items():
+        paths, prefix, events_dir, lengths, work = inputs[which]
+        layout = GenomeLayout.from_targets(lengths)
+        check(-(-layout.total_slots // chunk_slots) == n_chunks,
+              f"{key}: {layout.total_slots} slots are not {n_chunks} chunks")
+        for typ, name in (("hifi", "hifi"), ("ont", "nano")):
+            label = f"[readout] 10a {key} {typ}"
+            ckpt = os.path.join(work, f"{key}_{name}.depth.gz")
+            launches[f"{key}_{typ}"], peak = delta_readout(label, layout, paths[typ],
+                                                           chunk_slots, n_chunks, dev, ckpt)
+            if which == "t2t":
+                check(peak < READOUT_3G_PEAK_LIMIT,
+                      f"{label}: peak {peak} bytes not under {READOUT_3G_PEAK_LIMIT}")
+            check(_same_file(ckpt, os.path.join(events_dir, f"{prefix}_{name}.depth.gz")),
+                  f"{label}: the checkpoint differs from the events run's")
+            os.remove(ckpt)
+            log(f"{label}: checkpoint identical to the events run's")
+    return launches
+
+
+def curated_reads(bam: str, layout) -> tuple[dict, np.ndarray]:
+    """Every record's columns as int64, and the rows run_filter keeps of a
+    read type with one BAM and no PAF: those on a target that pass the
+    float64 host mask, the last of each name."""
+    data = read_bam(bam, threads=8, keep_names=False)
+    cols = {k: np.asarray(v, np.int64) for k, v in data.columns.items()}
+    ok = (cols["ref_id"] >= 0) & (cols["ref_id"] < len(layout.names))
+    keep = dedup_last_wins(data.name_keys, ok & bam_filter_mask(cols))
+    return cols, keep
+
+
+FILTER_COLUMNS = ("flag", "mapq", "m", "i", "d", "s", "eq", "x", "nm")
+
+
+def phase_helpers(paths, dev) -> dict[str, int]:
+    """10b: depth_single, the interval edges, two_type_max and the device
+    filter mask at MH63 size against their references.  Returns the
+    launches of the device calls."""
+    layout = GenomeLayout.from_targets(chrom_lengths())
+    depths = {}
+    kernels.reset_launch_counts()
+    for typ in ("hifi", "ont"):
+        cols, keep = curated_reads(paths[typ], layout)
+        tid, start, end = cols["ref_id"][keep], cols["pos"][keep], cols["ref_end"][keep]
+        gs, ge, live = pack_read_deltas(layout, tid, start, end, 15)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        depths[typ] = depth_single(gs, ge, live, layout.total_slots, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = accumulate_depth_numpy(layout, tid, start, end, 15)
+        check(np.array_equal(depths[typ].cpu().numpy(), want),
+              f"[helpers] depth_single over the {typ} reads differs from the numpy oracle")
+        log(f"[helpers] 10b depth_single over {keep.shape[0]} curated {typ} reads: "
+            f"{t1 - t0:.4f} s, equal to the numpy oracle")
+        if typ == "hifi":
+            valid = torch.from_numpy(build_scan_valid(layout, 15)).to(dev)
+            t0 = time.perf_counter()
+            m, rise, fall = interval_edges(depths[typ], valid, -1, 0)
+            got = edges_to_intervals(layout, rise, fall, m, 15)
+            t1 = time.perf_counter()
+            del m, rise, fall, valid
+            ref = collapse_depth_dict(depth_dict_from_flat(layout, want), -1, 0, 15, 0)
+            check(got == ref, "[helpers] interval_edges + edges_to_intervals differ from "
+                  "collapse_depth_dict")
+            n_iv = sum(len(v) for v in got.values())
+            check(n_iv > 0, "[helpers] no interval at (-1, 0)")
+            log(f"[helpers] 10b interval_edges + edges_to_intervals at (-1, 0): "
+                f"{t1 - t0:.4f} s, {n_iv} intervals, equal to collapse_depth_dict")
+        del want
+        host = bam_filter_mask(cols)
+        on_card = bam_filter_mask_device(
+            *(torch.from_numpy(cols[c]).to(dev) for c in FILTER_COLUMNS))
+        on_cpu = bam_filter_mask_device(*(torch.from_numpy(cols[c]) for c in FILTER_COLUMNS))
+        check(torch.equal(on_card.cpu(), on_cpu),
+              f"[helpers] bam_filter_mask_device on the card differs from the CPU ({typ})")
+        log(f"[helpers] 10b bam_filter_mask_device over {host.shape[0]} {typ} records: equal "
+            f"on the card and the CPU, {int(on_cpu.sum())} pass; "
+            f"{int((on_cpu.numpy() != host).sum())} decided otherwise than the float64 "
+            "host mask")
+    mx = two_type_max(depths["hifi"], depths["ont"])
+    check(torch.equal(mx.cpu(), torch.maximum(depths["hifi"].cpu(), depths["ont"].cpu())),
+          "[helpers] two_type_max differs from torch.maximum on the host")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = {name: HELPER_LAUNCHES.get(name, 0) for name in launches}
+    check(launches == want, f"[helpers] launches {launches}, expected {want}")
+    check(kernels.RELAUNCHES == {"compact_flags": 1, "compact_runs": 0},
+          f"[helpers] relaunches {kernels.RELAUNCHES}, expected the edges' one")
+    log(f"[helpers] 10b two_type_max equal to torch.maximum on the host; launches "
+        f"{launches}, relaunches {kernels.RELAUNCHES}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
@@ -1527,12 +1720,15 @@ def main() -> None:
         launches["streamed_mh63"] = phase_streamed_mh63(paths, work)
         launches["streamed_3g"], t2t_paths, t2t_dir = phase_streamed_t2t(work, packed_peak)
         phase_tools(paths, t2t_paths, t2t_dir, work)
-        launches.update(phase_overlap({
+        inputs = {
             "mh63": (paths, PREFIX, os.path.join(work, "events"), lengths, work),
             "t2t": (t2t_paths, T2T_PREFIX, os.path.join(work, "t2t_events"), t2t_lengths(),
                     work),
-        }, dev))
+        }
+        launches.update(phase_overlap(inputs, dev))
         launches.update(phase_sharded(paths, work, dev))
+        launches.update(phase_delta_readout(inputs, dev))
+        launches["helpers"] = phase_helpers(paths, dev)
     check("jax" not in sys.modules and "gci_tpu" not in sys.modules,
           "jax or the JAX package was imported")
 

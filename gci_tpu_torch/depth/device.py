@@ -3,9 +3,11 @@ sharded (dp, gp) programs.
 
 Counterpart of ``gci_tpu/depth/device.py``: the host numpy helpers
 ``pack_read_deltas``, ``pack_read_deltas_sharded``, ``build_scan_valid``
-and ``edge_indices_to_intervals``, the device scatter,
-``depth_and_edges_fused`` (the single-GPU fused entry), and the programs of
-the sharded backend over a ``parallel.mesh.Mesh``.
+and ``edge_indices_to_intervals``, the device scatter, the single-device
+helpers ``depth_single``, ``two_type_max``, ``interval_edges`` and
+``edges_to_intervals``, ``depth_and_edges_fused`` (the single-GPU fused
+entry), and the programs of the sharded backend over a
+``parallel.mesh.Mesh``.
 
 The sharded programs hold a genome of ``total_slots`` slots as gp equal
 shards, each a tensor on the device of its column's first position that
@@ -41,7 +43,9 @@ from gci_tpu_torch.depth.scan import (
     compact_runs,
     depth_scan,
     fused_depth_scan,
+    rise_fall,
 )
+from gci_tpu_torch.device import resolve_device
 from gci_tpu_torch.parallel import distributed
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -154,6 +158,64 @@ def _to_host(parts) -> list[np.ndarray]:
 def _local_prefix_sum(delta: torch.Tensor) -> torch.Tensor:
     """Inclusive int32 prefix sum on the tensor's device (``depth_scan``)."""
     return depth_scan(delta)
+
+
+def depth_single(gs, ge, live, total_slots: int, *,
+                 device: torch.device | str = "cuda") -> torch.Tensor:
+    """Per-slot int32 depth from packed read deltas on one device.
+
+    ``gs``, ``ge`` and ``live`` are host arrays as ``pack_read_deltas``
+    gives them.  The rows whose ``live`` is nonzero are scattered in one
+    ``index_add_`` (an index outside ``[0, total_slots)`` raises IndexError,
+    where the reference drops it), then ``depth_scan`` (K2 on the card)
+    gives the inclusive sum, which wraps in int32 as the reference's does.
+    """
+    live = np.asarray(live)
+    rows = live != 0
+    return depth_scan(scatter_events(total_slots, resolve_device(device), [
+        (np.asarray(gs)[rows], live[rows]), (np.asarray(ge)[rows], -live[rows]),
+    ]))
+
+
+def two_type_max(hifi_depth: torch.Tensor, nano_depth: torch.Tensor) -> torch.Tensor:
+    """Per-base max of two read types (GCI.py:332-353), on their device."""
+    return torch.maximum(hifi_depth, nano_depth)
+
+
+def interval_edges(depth: torch.Tensor, valid: torch.Tensor, leftmost: int,
+                   rightmost: int):
+    """In-range mask edges over the concatenated axis, on the tensors'
+    device.
+
+    Returns bool (mask, rise, fall): ``rise[i]`` marks a run start at i,
+    ``fall[i]`` the first out-of-range position after a run.  ``valid``
+    excludes sentinel slots and out-of-scan-window positions so runs can not
+    leak across target boundaries.
+    """
+    m = (depth > leftmost) & (depth <= rightmost) & valid
+    return (m, *rise_fall(m))
+
+
+def edges_to_intervals(
+    layout: GenomeLayout,
+    rise,
+    fall,
+    mask_last_valid,
+    flank_len: int,
+    start_pos: int = 0,
+) -> dict[str, list[tuple[int, int]]]:
+    """Compact edge bitmaps into reference-exact interval dicts.
+
+    ``rise`` and ``fall`` are bool tensors (or host arrays) of the
+    concatenated axis.  Their indices come from one launch of the flag form
+    of the compaction over ``rise | fall << 1`` on the bitmaps' device, so
+    only the edges reach the host.  ``mask_last_valid`` is unused, as in the
+    reference.
+    """
+    rise, fall = (b.to(torch.int8) if isinstance(b, torch.Tensor)
+                  else torch.tensor(np.asarray(b), dtype=torch.int8) for b in (rise, fall))
+    rise_idx, fall_idx = _to_host(compact_flags(rise | (fall << 1), (1, 2)))
+    return edge_indices_to_intervals(layout, rise_idx, fall_idx, flank_len, start_pos)
 
 
 def depth_and_edges_fused(gs, ge, live, valid_i8, leftmost: int, rightmost: int,

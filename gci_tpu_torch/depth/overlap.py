@@ -297,7 +297,12 @@ class SweepAccumulator(_Folding):
 
         The live continuation of the range (>= frontier) is handled by the
         caller's scatter (its boundary delta sits at the frontier), so the
-        carry needs no adjustment here.  Prevailing values at both
+        carry, the seed of the next chunk's scan, needs no adjustment here.
+        The comparison at that chunk's slot 0 does: ``_finalize_one`` makes
+        it against the finalized depth at ``a - 1``, which this fixup may
+        have shifted.  Where ``b`` is the first slot of a finalized chunk,
+        that chunk gets a boundary at ``b`` with the value there, which the
+        shift would otherwise carry into it.  Prevailing values at both
         endpoints are resolved before any event list is modified.
         """
         val_at_a = self._value_at(a)
@@ -318,6 +323,16 @@ class SweepAccumulator(_Folding):
                 insert_b=(rb == b and rb < chi), val_at_b=val_at_b,
             )
             self._chunk_events[c] = (idx, vals)
+        if b % self.chunk_slots == 0 and b < min(self.frontier * self.chunk_slots,
+                                                 self.total):
+            c = b // self.chunk_slots
+            idx, vals = self._chunk_events.get(
+                c, (np.empty(0, np.int64), np.empty(0, np.int64))
+            )
+            self._chunk_events[c] = _adjust_range(
+                idx, vals, b, b, 0, insert_a=False, val_at_a=0,
+                insert_b=True, val_at_b=val_at_b,
+            )
 
     def _finalize_through(self, min_future_start: int) -> None:
         """Finalize every chunk wholly before ``min_future_start``."""
@@ -330,8 +345,12 @@ class SweepAccumulator(_Folding):
     def _finalize_one(self) -> None:
         """Scan the frontier chunk and compact its run boundaries: the carry
         at its slot 0, the int32 scan, then the run form of the compaction
-        seeded with the carry and one readback.  The next carry is the
-        depth at the chunk's last slot, the value of its last run."""
+        and one readback.  The scan is seeded with the carry, the scanned
+        depth at ``a - 1``; slot 0 is compared with the finalized depth
+        there, which a retraction reaching the frontier may have shifted
+        since (``_fixup_finalized``).  The next carry is the depth at the
+        chunk's last slot: the value of its last run, or, with no boundary,
+        the value compared with at slot 0."""
         c = self.frontier
         a, b = self._bounds(c)
         delta = self._live.pop(c, None)
@@ -340,11 +359,12 @@ class SweepAccumulator(_Folding):
         delta[:1] += self._carry  # one more event at the chunk's slot 0
         depth = depth_scan(delta)
         del delta
-        idx, vals = chunk_runs(depth, a, self._carry, self._rows.pop(c, 0))
+        prev = self._value_at(a - 1) if a > 0 else 0
+        idx, vals = chunk_runs(depth, a, prev, self._rows.pop(c, 0))
         del depth
         if idx.shape[0]:
             self._chunk_events[c] = (idx, vals)
-            self._carry = int(vals[-1])
+        self._carry = int(vals[-1]) if idx.shape[0] else prev
         self.frontier += 1
 
     # ------------------------------------------------------------------ API

@@ -29,7 +29,10 @@ independent of the genome's size.  Consumers:
   the compaction kernel) and read back, so no per-base array exists
   anywhere, on the host or the card;
 * ``overlap.SweepAccumulator``, which runs ``chunk_runs`` on each chunk
-  the coordinate sweep has passed.
+  the coordinate sweep has passed;
+* ``events_from_delta2d_streamed``: the same read-out of a resident delta
+  that the pack <-> scatter overlap accumulated (``overlap.DeltaAccumulator``),
+  chunk by chunk, for genomes past int32 slots.
 """
 from __future__ import annotations
 
@@ -153,6 +156,61 @@ def events_from_reads_streamed(
     ):
         runs.append(chunk_runs(depth, a, carry, rows))
         del depth
+    return events_from_runs(layout, runs)
+
+
+def resident_chunk_slots(total: int, chunk_slots: int | None = None) -> int:
+    """The chunk size of ``events_from_delta2d_streamed`` over ``total``
+    slots: ``chunk_slots`` (``CHUNK_SLOTS`` unless given), never more than
+    the genome and at least 1.  The reference aligns and buckets it to its
+    Pallas tiles; the kernels here take any length."""
+    chunk = CHUNK_SLOTS if chunk_slots is None else int(chunk_slots)
+    return max(1, min(chunk, total))
+
+
+def events_from_delta2d_streamed(layout: GenomeLayout, delta: torch.Tensor,
+                                 chunk_slots: int | None = None, rows: int | None = None):
+    """{target: DepthEvents} from a resident read delta, read out in chunks
+    of ``resident_chunk_slots(total, chunk_slots)`` slots; O(chunk) on the
+    card beside the delta and O(runs) on the host.
+
+    ``delta`` is the flat int32 tensor of exactly ``layout.total_slots``
+    slots that ``overlap.DeltaAccumulator.take_delta`` hands over (the
+    reference holds it as (n_chunks, chunk_slots) rows), on any device.
+    ``rows``, the events scattered into it (``DeltaAccumulator.rows``),
+    bounds every chunk's run boundaries together, and so each chunk's.
+
+    Per chunk: ``depth_scan`` over the chunk's slice with the carry added at
+    its slot 0, then ``chunk_runs``, the run form of the compaction with
+    the carry as slot 0's predecessor, and one readback.  The carry is the
+    depth at the chunk's slot ``a - 1``: the value of the previous chunk's
+    last run, or, where that chunk made no boundary, its own carry (the
+    reference takes it from one more pass of per-chunk sums).  Only
+    chunk-local indices reach the kernels, so the genome may pass 2^31
+    slots.  The delta is consumed: each chunk's slot 0 keeps the carry added
+    to it, so the caller must not read the delta afterwards.
+    """
+    total = layout.total_slots
+    if delta.dtype != torch.int32 or delta.shape != (total,):
+        raise ValueError(f"expected an int32 delta of {total} slots, got {delta.dtype} "
+                         f"of shape {tuple(delta.shape)}")
+    chunk = resident_chunk_slots(total, chunk_slots)
+    if chunk > _INT32_MAX:
+        raise ValueError(f"chunk of {chunk} slots: expected 1 to {_INT32_MAX}")
+    runs = []
+    carry = 0
+    for a in range(0, total, chunk):
+        x = delta[a:a + chunk]
+        x[:1] += carry  # one more event at the chunk's slot 0
+        if x.data_ptr() % 16:  # the scan kernel reads 16-byte aligned words
+            x = x.clone()
+        depth = depth_scan(x)
+        del x
+        idx, vals = chunk_runs(depth, a, carry, rows)
+        del depth  # before the next chunk's scan
+        runs.append((idx, vals))
+        if idx.shape[0]:
+            carry = int(vals[-1])
     return events_from_runs(layout, runs)
 
 

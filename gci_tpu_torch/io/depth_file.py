@@ -4,7 +4,8 @@ Format: gzip-compressed text, one ``>target`` header line per target
 followed by one decimal depth per base per line (GCI.py:113-117 writer,
 utility/GCI_score.py:11-39 reader).  Copied from the JAX package: the
 readers (``decode_depth_text``, ``read_depth_gz``, ``read_depth_gz_events``,
-``iter_depth_targets``) whole, and the writer ``write_depth_gz`` with
+``iter_depth_targets``) and the text encoder ``encode_depth_text`` whole,
+and the writer ``write_depth_gz`` with
 its multi-process form and the run-length and text helpers it needs, so
 the bytes are the reference writer's.
 """
@@ -197,6 +198,15 @@ def iter_depth_targets(path: str, chunk_bytes: int = 1 << 25):
             parts.append(parse_block(pending + b"\n"))
     if name is not None:
         yield name, (np.concatenate(parts) if parts else np.empty(0, np.int64))
+
+
+def encode_depth_text(depths: dict[str, np.ndarray]) -> bytes:
+    """Encode {target: int array} into the reference text format."""
+    chunks: list[bytes] = []
+    for target, vals in depths.items():
+        chunks.append(b">" + target.encode() + b"\n")
+        chunks.append(_encode_uint_lines(np.asarray(vals, dtype=np.int64)))
+    return b"".join(chunks)
 
 
 def _encode_uint_lines(vals: np.ndarray) -> bytes:

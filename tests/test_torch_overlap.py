@@ -305,8 +305,10 @@ def test_sweep_retro_add_after_finalization_matches_jax():
         all_names, np.zeros(s.shape[0], np.int32), s, np.minimum(s + 800, 40000)), FLANK))
 
 
-# seeds of _duplicate_reads on which both packages' sweeps differ from the
-# batch survivors' depth (ROADMAP C)
+# seeds of _duplicate_reads on which gci_tpu's sweep differs from the batch
+# survivors' depth: a retraction reaching the frontier shifts the last
+# finalized run, and gci_tpu compares the next chunk's slot 0 with its stale
+# carry (ROADMAP C1, closed in the port)
 SWEEP_FAULT_SEEDS = [54, 87, 114, 183, 293]
 
 
@@ -328,22 +330,87 @@ def _sorted_duplicate_sweeps(seed):
         jlayout, *_batch_survivors(names, tid, start, end), FLANK)
 
 
+def _events_differ(got, want) -> bool:
+    try:
+        _assert_events_equal(got, want)
+    except AssertionError:
+        return True
+    return False
+
+
 @pytest.mark.parametrize("seed", SWEEP_FAULT_SEEDS)
 def test_sweep_duplicate_reads_matches_jax(seed):
-    """The port's sweep gives gci_tpu's events on the inputs of the open
-    fault below, slot for slot."""
-    got, ref, _ = _sorted_duplicate_sweeps(seed)
-    _assert_events_equal(got, ref)
+    """Where the port leaves gci_tpu: on these seeds the port's sweep gives
+    the batch survivors' depth, gci_tpu's own oracle, and gci_tpu's sweep
+    does not.  Pins the divergence, so a change on either side shows."""
+    got, ref, want = _sorted_duplicate_sweeps(seed)
+    _assert_events_equal(got, want)
+    assert _events_differ(ref, want)
 
 
-@pytest.mark.xfail(strict=True, reason="ROADMAP C: the sweep's depth differs from the "
-                   "batch survivors' by 1 on 9-195 slots on these seeds, in gci_tpu too")
 @pytest.mark.parametrize("seed", SWEEP_FAULT_SEEDS)
 def test_sweep_duplicate_reads_matches_batch_survivors(seed):
-    """The open fault: on these seeds the sweep (in both packages) is not
-    the depth of the batch survivors.  Strict, so a fix shows here."""
+    """On the seeds of the former fault the sweep is the depth of the
+    batch survivors."""
     got, _, want = _sorted_duplicate_sweeps(seed)
     _assert_events_equal(got, want)
+
+
+def _hand_sweeps(batches, chunk_slots=4096):
+    """``batches`` of (name, start, end) rows on one target of 40,000 slots
+    through both packages' sweeps, one BAM chunk per batch; returns (port's
+    events, gci_tpu's events, the batch survivors' events, the port's
+    frontier after each batch)."""
+    lens = {"c": 39_999}
+    acc, jacc, jlayout = _sweep_pair(lens, chunk_slots)
+    rows = [r for b in batches for r in b]
+    names = [r[0].encode() for r in rows]
+    tid = np.zeros(len(rows), np.int32)
+    start = np.array([r[1] for r in rows], np.int64)
+    end = np.array([r[2] for r in rows], np.int64)
+    bounds = np.cumsum([0] + [len(b) for b in batches])
+    frontiers = []
+    for _ in _feed((acc, jacc), _both_keys(names), tid, start, end, bounds):
+        assert acc.frontier == jacc.frontier
+        frontiers.append(acc.frontier)
+    return acc.finish(), jacc.finish(), jax_events_dict(
+        jlayout, *_batch_survivors(names, tid, start, end), FLANK), frontiers
+
+
+def test_sweep_retraction_ending_on_a_finalized_chunk_border():
+    """Read X covers global slots [7015, 8192), read Y starts at 8192, the
+    border of chunks 1 and 2 (4,096 slots each), and X is retracted once
+    the frontier has passed chunk 2.  Chunk 2's slot 0 made no boundary
+    (depth 1 before and after), so the fixup pins its value there; without
+    that the shift of X's run reaches all 471 of Y's slots.  gci_tpu's
+    sweep loses it."""
+    got, ref, want, frontiers = _hand_sweeps([
+        [("x", 7000, 8206), ("y", 8177, 8677)],  # Y: slots [8192, 8663)
+        [("z", 13000, 13500)],                   # the frontier passes chunk 2
+        [("x", 14000, 14500)],                   # X again: retract [7015, 8192)
+    ])
+    assert frontiers[1] == 3
+    _assert_events_equal(got, want)
+    np.testing.assert_array_equal(got["c"].materialize()[8192:8663], 1)
+    diff = ref["c"].materialize() != want["c"].materialize()
+    assert np.flatnonzero(diff).tolist() == list(range(8192, 8663))
+
+
+def test_sweep_retraction_at_the_frontier_before_a_chunk_with_no_boundary():
+    """X ends at 8192, where the frontier stands, and is retracted there;
+    W, the only read starting in chunk 2, is retracted with it.  Chunk 2's
+    depth is then 0 throughout, equal to the finalized depth before it, so
+    it has no boundary, and the next chunk's seed must be that 0, not the
+    scanned depth 1 at slot 8191 that seeded chunk 2.  gci_tpu's sweep,
+    which compares with its carry, gets this case right too."""
+    got, ref, want, frontiers = _hand_sweeps([
+        [("x", 7000, 8206)],
+        [("w", 8985, 14000)],                           # the frontier: chunk 2
+        [("x", 30000, 30500), ("w", 30000, 30600)],     # retract both
+    ])
+    assert frontiers[:2] == [1, 2]
+    _assert_events_equal(got, want)
+    _assert_events_equal(ref, want)
 
 
 def test_sweep_chunk_buffers_have_the_chunks_length():
@@ -463,8 +530,7 @@ def test_accumulators_on_cuda_match_cpu(cuda_device, sweep_chunk):
     form of the compaction once each) and K1 and the flag form once for
     from_delta.  Its inputs come from a generator of its own, not from the
     shared ``rng`` fixture, whose state depends on the tests run before
-    it: on some inputs both packages' sweeps differ from the batch
-    survivors' depth (ROADMAP C)."""
+    it, so that its inputs are the same whichever tests run."""
     rng = np.random.default_rng(0)
     lens = {"c1": 60000, "c2": 40000}
     layout = GenomeLayout.from_targets(lens)

@@ -14,15 +14,22 @@ import torch
 from gci_tpu.depth import streamed as jax_streamed
 from gci_tpu.depth.accum import GenomeLayout as JaxGenomeLayout
 from gci_tpu.depth.eventspace import events_dict_from_reads as jax_events_dict
+from gci_tpu.depth.overlap import DeltaAccumulator as JaxDeltaAccumulator
+from gci_tpu.filters.cascade import dedup_last_wins as jax_dedup
+from gci_tpu.io.names import hash_names as jax_hash_names
+from gci_tpu.io.names import keys_view as jax_keys_view
 from gci_tpu_torch import kernels
-from gci_tpu_torch.depth import accum, streamed
+from gci_tpu_torch.depth import accum, overlap, streamed
+from gci_tpu_torch.depth.device import scatter_events_into
 from gci_tpu_torch.depth.accum import (
     GenomeLayout,
     accumulate_depth,
     accumulate_depth_numpy,
     depth_dict_from_flat,
 )
+from gci_tpu_torch.filters.cascade import dedup_last_wins
 from gci_tpu_torch.intervals.collapse import collapse_depth_runs
+from gci_tpu_torch.io.names import hash_names, keys_view
 
 TARGETS = {"a": 9000, "b": 7000, "c": 150}
 CPU = torch.device("cpu")
@@ -219,6 +226,128 @@ def test_chunk_plan_refuses_chunks_past_int32(chunk):
 
 
 # ---------------------------------------------------------------------------
+# the read-out of a resident delta: events_from_delta2d_streamed
+# ---------------------------------------------------------------------------
+
+LAST_WINS_TARGETS = {"c1": 5000, "c2": 3000}
+
+
+def _last_wins_reads(seed, n=600):
+    """``tests/test_streamed.py``'s last-wins case: 600 reads of 250 names,
+    so names are replaced across chunks, some twice."""
+    rng = np.random.default_rng(seed)
+    names = [f"r{int(rng.integers(0, 250))}".encode() for _ in range(n)]
+    tid = rng.integers(0, 2, n).astype(np.int32)
+    L = np.array([5000, 3000])[tid]
+    start = (L * rng.random(n) * 0.8).astype(np.int64)
+    end = np.minimum(start + rng.integers(30, 900, n), L)
+    return names, tid, start, end
+
+
+def _accumulate(acc, keys, dedup, kview, tid, start, end, n_chunks=7):
+    """Feed ``acc`` the reads in ``n_chunks`` chunks of file order, each
+    deduped within the chunk."""
+    bounds = np.linspace(0, tid.shape[0], n_chunks + 1).astype(int)
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        surv = dedup(keys[lo:hi], np.ones(hi - lo, bool)) + lo
+        acc.add_chunk(kview(keys[surv]), tid[surv], start[surv], end[surv])
+    return acc
+
+
+def _batch_events(layout, names, tid, start, end):
+    surv = dedup_last_wins(hash_names(names), np.ones(len(names), bool))
+    return jax_events_dict(layout, tid[surv], start[surv], end[surv], 15)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_delta_readout_matches_jax_and_batch_survivors(seed):
+    """The 7-chunk last-wins case: the port's and gci_tpu's accumulators
+    on the same chunks, each read out by its own
+    ``events_from_delta2d_streamed`` in 4096-slot chunks; both equal the
+    batch survivors' events, and no compaction launches twice."""
+    names, tid, start, end = _last_wins_reads(seed)
+    layout = GenomeLayout.from_targets(LAST_WINS_TARGETS)
+    jlayout = JaxGenomeLayout.from_targets(LAST_WINS_TARGETS)
+    want = _batch_events(jlayout, names, tid, start, end)
+    cs = jax_streamed.resident_chunk_slots(layout.total_slots, chunk_slots=4096)
+    assert cs == streamed.resident_chunk_slots(layout.total_slots, 4096) == 4096
+    jacc = _accumulate(JaxDeltaAccumulator(jlayout, 15, cs), jax_hash_names(names),
+                       jax_dedup, jax_keys_view, tid, start, end)
+    ref = jax_streamed.events_from_delta2d_streamed(jlayout, jacc.delta2d, chunk_slots=4096)
+    acc = _accumulate(overlap.DeltaAccumulator(layout, 15, device=CPU), hash_names(names),
+                      dedup_last_wins, keys_view, tid, start, end)
+    assert acc.rows_retracted > 0
+    kernels.reset_launch_counts()
+    got = streamed.events_from_delta2d_streamed(layout, acc.take_delta(), 4096, rows=acc.rows)
+    assert kernels.RELAUNCHES["compact_runs"] == 0
+    _assert_events_equal(ref, want, LAST_WINS_TARGETS)
+    _assert_events_equal(got, want, LAST_WINS_TARGETS)
+
+
+# BORDER_READS at 15-slot flanks: slots [915, 2086), [965, 1000), [1915,
+# 2986) and [5015, 5985) of the first target, [6016, 6036) of the second
+@pytest.mark.parametrize("chunk_slots", [
+    997,    # borders inside runs (997, 1994, 2991 and on)
+    1000,   # a border exactly on a read's end (1000), one inside two runs (2000)
+    2086,   # a border exactly on another read's end
+    6052,   # one chunk: the whole genome
+    10**6,  # one chunk, asked larger than the genome
+    7,      # 865 chunks, the last one short
+])
+def test_delta_readout_chunk_borders(chunk_slots):
+    """The read-out of the reads' delta in chunks whose borders fall inside
+    runs, on read ends, or nowhere; ``total_slots`` (6052) is a multiple of
+    none of the chunks shorter than the genome.  Equal to the oracle's
+    events, with no relaunch."""
+    layout = GenomeLayout.from_targets(BORDER_TARGETS)
+    tid, start, end = BORDER_READS
+    gs, ge = streamed._sorted_events(layout, tid, start, end, 15)
+    assert {1000, 2086} <= set(ge.tolist())
+    delta = torch.zeros(layout.total_slots, dtype=torch.int32)
+    scatter_events_into(delta, [(gs, 1), (ge, -1)])
+    want = jax_events_dict(JaxGenomeLayout.from_targets(BORDER_TARGETS), tid, start, end, 15)
+    kernels.reset_launch_counts()
+    got = streamed.events_from_delta2d_streamed(layout, delta, chunk_slots,
+                                                rows=2 * gs.shape[0])
+    assert kernels.RELAUNCHES["compact_runs"] == 0
+    _assert_events_equal(got, want, BORDER_TARGETS)
+
+
+@pytest.mark.parametrize("total,chunk", [
+    (1, 1), (5, 1), (6052, 1000), (6052, 6052), (6052, 10**9), (2**28 + 5, 2**28),
+    (3_100_000_024, 2**28), (100, 0),
+])
+def test_resident_chunk_slots_matches_jax(total, chunk):
+    """The reference's branch off the TPU: the chunk, never more than the
+    genome, at least 1."""
+    assert streamed.resident_chunk_slots(total, chunk) == \
+        jax_streamed.resident_chunk_slots(total, chunk_slots=chunk, kernel="jnp")
+
+
+def test_resident_chunk_slots_defaults_to_chunk_slots(monkeypatch):
+    assert streamed.resident_chunk_slots(3_100_000_024) == streamed.CHUNK_SLOTS == 2**28
+    assert streamed.resident_chunk_slots(1000) == 1000
+    monkeypatch.setattr(streamed, "CHUNK_SLOTS", 64)
+    assert streamed.resident_chunk_slots(1000) == 64
+
+
+def test_delta_readout_checks_the_delta_and_consumes_it():
+    """The delta must be int32 of exactly ``total_slots``; the read-out
+    adds each chunk's carry at its slot 0 in place."""
+    layout = GenomeLayout.from_targets({"t": 99})  # 100 slots
+    for bad in (torch.zeros(101, dtype=torch.int32), torch.zeros(100, dtype=torch.int64),
+                torch.zeros((4, 25), dtype=torch.int32)):
+        with pytest.raises(ValueError, match="int32 delta of 100 slots"):
+            streamed.events_from_delta2d_streamed(layout, bad)
+    delta = torch.zeros(100, dtype=torch.int32)
+    delta[10], delta[70] = 1, -1
+    ev = streamed.events_from_delta2d_streamed(layout, delta, 25)
+    np.testing.assert_array_equal(ev["t"].materialize(),
+                                  np.r_[np.zeros(10), np.ones(60), np.zeros(29)])
+    assert delta[25].item() == delta[50].item() == 1 and delta[75].item() == 0
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -263,3 +392,41 @@ def test_accumulate_depth_on_cuda_matches_oracle(rng, cuda_device, monkeypatch):
     np.testing.assert_array_equal(accumulate_depth(layout, tid, start, end, 15), want)
     monkeypatch.setattr(accum, "stream_slot_limit", lambda device: 1000)
     np.testing.assert_array_equal(accumulate_depth(layout, tid, start, end, 15), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_slots", [1001, 4096, 1_500_007])
+def test_delta_readout_on_cuda_matches_cpu(cuda_device, chunk_slots):
+    """The read-out of one accumulated delta on the card equals the CPU's:
+    a genome of 3,000,003 slots, chunk borders inside runs (1001 slots:
+    every border but the first at an unaligned address, so the chunk is
+    copied for the scan), one chunk past 2^20 slots; per chunk one K2 and
+    one run-form compaction, and no relaunch."""
+    targets = {"c1": 2_000_000, "c2": 1_000_001}
+    layout = GenomeLayout.from_targets(targets)
+    rng = np.random.default_rng(11)
+    n = 6000
+    names = [f"r{int(rng.integers(0, 4000))}".encode() for _ in range(n)]
+    tid = rng.integers(0, 2, n).astype(np.int32)
+    L = np.array(list(targets.values()))[tid]
+    start = (L * rng.random(n) * 0.98).astype(np.int64)
+    end = np.minimum(start + rng.integers(30, 40_000, n), L)
+    keys = hash_names(names)
+
+    def run(dev):
+        acc = _accumulate(overlap.DeltaAccumulator(layout, 15, device=dev), keys,
+                          dedup_last_wins, keys_view, tid, start, end)
+        return streamed.events_from_delta2d_streamed(layout, acc.take_delta(), chunk_slots,
+                                                     rows=acc.rows)
+
+    want = run(CPU)
+    kernels.reset_launch_counts()
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    n_chunks = -(-layout.total_slots // chunk_slots)
+    assert kernels.LAUNCHES["depth_scan"] == n_chunks
+    assert kernels.LAUNCHES["compact_runs"] == n_chunks
+    assert kernels.RELAUNCHES["compact_runs"] == 0
+    _assert_events_equal(got, want, targets)
+    _assert_events_equal(got, _batch_events(JaxGenomeLayout.from_targets(targets), names,
+                                            tid, start, end), targets)
