@@ -27,7 +27,9 @@ Phases, each printing its results:
    ``depth.device.depth_and_edges_fused`` (fused_depth_scan) and
    ``depth.scan.fused_depth_scan_masked``, at MH63 size, each checked
    against its plain version;
-5. the main path: ``gci_tpu_torch.cli.main`` on an MH63-shaped reference
+5. the main path without the pack<->scatter overlap (``GCI_NO_OVERLAP``
+   set for phases 5 and 6; phase 11 takes it):
+   ``gci_tpu_torch.cli.main`` on an MH63-shaped reference
    with a HiFi and an ONT BAM and a regions BED, with ``--device device``
    (the packed path), again with ``--device device`` and
    ``gci_tpu_torch.depth.fused.PACKED_DEPTH_LIMIT`` set to 1 in this process
@@ -60,10 +62,11 @@ Phases, each printing its results:
    tools launch no kernel.  The plot tools are not run here (the card's
    machine is not known to have matplotlib); the CPU tests hold them
    against ``gci_tpu``'s;
-8. the pack<->scatter overlap (``depth/overlap.py``), which the CLI does
-   not take: each read type's BAM packed by ``overlap.feed_bam`` into an
-   accumulator on the card ("on"), against ``pipeline.run_filter`` on the
-   same BAM chunks ("off", the depth of the curated reads), each for the
+8. the pack<->scatter overlap (``depth/overlap.py``) outside the CLI:
+   each read type's BAM packed by ``overlap.feed_bam`` into an
+   accumulator on the card ("on"), against ``pipeline.run_filter`` with
+   ``GCI_NO_OVERLAP`` on the same BAM chunks ("off", the depth of the
+   curated reads), each for the
    HiFi and the ONT BAM: (a) the MH63-shaped inputs into the resident
    delta, then ``DeviceDepth.from_delta``'s packed branch (K1 once per
    type, K3 not), (b) the same with ``PACKED_DEPTH_LIMIT`` 1 (its flags
@@ -110,13 +113,30 @@ Phases, each printing its results:
    two depths against ``torch.maximum`` on the host, and
    ``filters.device.bam_filter_mask_device`` over every record of both
    BAMs on the card against the same on the CPU (and, for information,
-   how many records it decides otherwise than the float64 host mask).
+   how many records it decides otherwise than the float64 host mask);
+11. the CLI through the overlap: the default gate must keep it off on the
+   card; then the dual-type ``cli.main`` with ``--device device`` and
+   ``GCI_FORCE_OVERLAP``, where each read type's one BAM folds into an
+   accumulator on the card during pack: (a) the MH63-shaped
+   inputs (the resident delta, then ``DeviceDepth.from_delta``'s packed
+   branch), (b) the same with ``PACKED_DEPTH_LIMIT`` 1 (its flags branch),
+   (c) phase 6b's 3.1 Gbp inputs (the coordinate sweep over 12 chunks of
+   2^28 slots), each at run_filter's default 64 MiB BAM chunk and at 128
+   KiB, in ``CLI_OVERLAP_TURNS`` turns alternating with the same run under
+   ``GCI_NO_OVERLAP``.  Every run's nine outputs must be identical to the
+   events run's, its launches those of the path without the overlap, the
+   MH63 peaks at most ``accum.RESIDENT_BYTES_PER_SLOT`` per slot, the T2T
+   peaks without the overlap and with it at 128 KiB below
+   ``RESIDENT_MH63_PEAK``; each case prints the walls with and without the
+   overlap (median and spread), the peaks, and per read type the BAM
+   chunks, the fold's seconds and share of the pack stage, and the rows
+   retracted, and the seconds in ``add_chunk``.
 
-Launch counts are set to 0 just before each path of phases 4 to 10 runs and
-read just after, and each path of phases 4 to 6 and 8 to 10 must have
+Launch counts are set to 0 just before each path of phases 4 to 11 runs and
+read just after, and each path of phases 4 to 6 and 8 to 11 must have
 launched exactly the kernels counted from its code (``PATH_LAUNCHES``,
 ``check_streamed_launches``, ``OVERLAP_CASES``, ``SHARDED_SCANS_PER_SHARD``,
-``READOUT_CASES``, ``HELPER_LAUNCHES``): K2's int8 form none on any path,
+``READOUT_CASES``, ``HELPER_LAUNCHES``, ``CLI_OVERLAP_CASES``): K2's int8 form none on any path,
 and no compaction relaunched past its caller's capacity (the helpers'
 edges, which have no bound, count first: one relaunch).  The script prints one JSON line with each
 kernel's launches on its path and on every path, error, times and bound,
@@ -144,7 +164,7 @@ import zlib
 import numpy as np
 import torch
 
-from gci_tpu_torch import cli, kernels
+from gci_tpu_torch import cli, kernels, pipeline
 from gci_tpu_torch.depth import accum, fused, streamed
 from gci_tpu_torch.depth.accum import GenomeLayout, accumulate_depth_numpy, depth_dict_from_flat
 from gci_tpu_torch.depth.device import (
@@ -249,6 +269,21 @@ OVERLAP_CASES = {
         label="8d T2T sweep", inputs="t2t", acc="sweep", backend="device",
         bam_chunk_bytes=(OVERLAP_BAM_CHUNK_BYTES, DEFAULT_BAM_CHUNK_BYTES)),
 }
+# phase 11: the dual-type CLI with --device device through the overlap, at
+# the default BAM chunk and at 128 KiB: launches_by_path key -> its label,
+# inputs, PACKED_DEPTH_LIMIT and the path whose launches it must have.  The
+# overlap launches what the path without it launches: per read type
+# from_delta's K1 (or K3 and K2 twice) and flag compaction in place of
+# from_reads', the sweep's K2 and run form per genome chunk in place of the
+# streamed path's
+CLI_OVERLAP_CASES = {
+    "cli_overlap_packed": dict(label="11a MH63 packed", inputs="mh63", path="packed"),
+    "cli_overlap_flags": dict(label="11b MH63 flags, PACKED_DEPTH_LIMIT 1", inputs="mh63",
+                              path="flags", limit=1),
+    "cli_overlap_3g": dict(label="11c T2T --device device (the sweep)", inputs="t2t",
+                           path="streamed_3g", chunks=12),
+}
+CLI_OVERLAP_TURNS = 3  # runs with the overlap, alternating with as many without
 # the stages of a run_filter call from the BAM to the depth on the host
 PACK_TO_DEPTH_STAGES = ("bam_pack", "curation", "depth_accumulate", "checkpoint_readback")
 # phase 9: launches of a dual-type sharded run with regions and N gaps, per
@@ -1318,27 +1353,47 @@ def phase_tools(paths, t2t_paths, t2t_dir: str, work: str) -> None:
 # 8. the pack<->scatter overlap
 # ---------------------------------------------------------------------------
 
+class Environ:
+    """While active: the given variables of this process's environment set
+    (None unsets one), restored after."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self._old = {k: os.environ.get(k) for k in self.values}
+        self._set(self.values)
+        return self
+
+    def __exit__(self, *exc):
+        self._set(self._old)
+
+    @staticmethod
+    def _set(values) -> None:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+
+
 class _Setting:
     """While active: ``GCI_BAM_CHUNK_BYTES`` in this process's environment
     and ``fused.PACKED_DEPTH_LIMIT`` (unless None) set, restored after."""
 
     def __init__(self, chunk_bytes: int, limit: int | None):
-        self.chunk_bytes, self.limit = chunk_bytes, limit
+        self.env, self.limit = Environ(GCI_BAM_CHUNK_BYTES=chunk_bytes), limit
 
     def __enter__(self):
-        self._env = os.environ.get("GCI_BAM_CHUNK_BYTES")
+        self.env.__enter__()
         self._limit = fused.PACKED_DEPTH_LIMIT
-        os.environ["GCI_BAM_CHUNK_BYTES"] = str(self.chunk_bytes)
         if self.limit is not None:
             fused.PACKED_DEPTH_LIMIT = self.limit
         return self
 
     def __exit__(self, *exc):
         fused.PACKED_DEPTH_LIMIT = self._limit
-        if self._env is None:
-            os.environ.pop("GCI_BAM_CHUNK_BYTES", None)
-        else:
-            os.environ["GCI_BAM_CHUNK_BYTES"] = self._env
+        self.env.__exit__(*exc)
 
 
 def overlap_on(case, layout, bam: str, gaps, chunk_bytes: int, dev, ckpt: str) -> dict:
@@ -1375,12 +1430,12 @@ def overlap_on(case, layout, bam: str, gaps, chunk_bytes: int, dev, ckpt: str) -
 
 
 def overlap_off(case, bam: str, gaps, read_type: str, dev, out_dir: str, prefix: str) -> dict:
-    """The same BAM through ``run_filter`` (the depth of the curated
-    reads); its pack-to-depth stages in seconds."""
+    """The same BAM through ``run_filter`` without the overlap (the depth
+    of the curated reads); its pack-to-depth stages in seconds."""
     get_metrics().reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with RssPeak() as rss, StreamedCalls(case.get("chunk")):
+    with RssPeak() as rss, StreamedCalls(case.get("chunk")), Environ(GCI_NO_OVERLAP=1):
         depths, _ = run_filter([], [bam], prefix, directory=out_dir, force=True,
                                log_reads_type=read_type, threads=8,
                                depth_backend=case["backend"], torch_device=dev,
@@ -1702,6 +1757,146 @@ def phase_helpers(paths, dev) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 11. the CLI through the overlap
+# ---------------------------------------------------------------------------
+
+class OverlapCalls:
+    """While active: each accumulator ``pipeline._make_overlap_accumulator``
+    returns (None where the gate turns the overlap off) kept in ``made``
+    (``run_filter`` looks the function up at each call), with the seconds
+    spent in its ``add_chunk`` calls, the fold's included, in its
+    ``add_seconds``."""
+
+    def __enter__(self):
+        self.made = []
+        self._real = pipeline._make_overlap_accumulator
+
+        def spy(*args, **kwargs):
+            acc = self._real(*args, **kwargs)
+            if acc is not None:
+                acc.add_seconds, add = 0.0, acc.add_chunk
+
+                def timed(*a):
+                    t0 = time.perf_counter()
+                    add(*a)
+                    acc.add_seconds += time.perf_counter() - t0
+
+                acc.add_chunk = timed
+            self.made.append(acc)
+            return acc
+
+        pipeline._make_overlap_accumulator = spy
+        return self
+
+    def __exit__(self, *exc):
+        pipeline._make_overlap_accumulator = self._real
+
+
+def cli_overlap_run(case, paths, prefix: str, events_dir: str, out: str, on: bool,
+                    label: str) -> dict:
+    """One dual-type CLI run, ``--device device``, with ``GCI_FORCE_OVERLAP``
+    (``on``) or with ``GCI_NO_OVERLAP`` set, launch counts set to 0 just
+    before it and read just after; its launches must be the path's, its
+    nine outputs the events run's and its peak within the case's bound.
+    Returns its wall, launches, peak and, with the overlap, per read type
+    the BAM chunks folded, the seconds in ``add_chunk`` and in the fold,
+    the rows retracted and the pack stage's seconds."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with Environ(GCI_NO_OVERLAP=None if on else 1, GCI_FORCE_OVERLAP=1 if on else None), \
+            OverlapCalls() as calls:
+        wall, stages = run_cli(paths, out, "device", prefix)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_no_relaunch(label)
+    if case["path"] in PATH_LAUNCHES:
+        want = {name: PATH_LAUNCHES[case["path"]].get(name, 0) for name in launches}
+        check(launches == want, f"{label}: launches {launches}, expected {want}")
+    else:
+        check_streamed_launches(launches, case["chunks"], label)
+    check(len(calls.made) == 2, f"{label}: {len(calls.made)} read types through the gate")
+    if on:
+        check(all(a is not None for a in calls.made),
+              f"{label}: GCI_FORCE_OVERLAP did not turn the overlap on")
+    else:
+        check(calls.made == [None, None], f"{label}: GCI_NO_OVERLAP did not turn it off")
+    check_same_outputs(out, events_dir, prefix, label)
+    if case["inputs"] == "mh63":
+        slots = GenomeLayout.from_targets(chrom_lengths()).total_slots
+        check(peak <= accum.RESIDENT_BYTES_PER_SLOT * slots,
+              f"{label}: peak {peak} bytes exceeds RESIDENT_BYTES_PER_SLOT")
+    pack = {r["stage"].split(":")[0]: r["seconds"] for r in stages
+            if r["stage"].split(":")[1:2] == ["bam_pack"]}
+    types = [dict(type=t, bam_chunks=a.chunks_added, add_chunk_s=a.add_seconds,
+                  fold_s=a.fold_seconds, rows_retracted=a.rows_retracted, pack_s=pack[t],
+                  fold_share_of_pack=a.fold_seconds / pack[t])
+             for t, a in zip(("HiFi", "ONT"), calls.made) if a is not None]
+    return dict(wall=wall, launches=launches, peak=peak, types=types, stages=stages)
+
+
+def phase_cli_overlap(inputs) -> dict[str, dict[str, int]]:
+    """11: the default gate keeps the overlap off on the card; then each
+    CLI_OVERLAP_CASES case at each BAM chunk size, in CLI_OVERLAP_TURNS
+    turns of ``GCI_FORCE_OVERLAP`` alternating with ``GCI_NO_OVERLAP`` (on
+    off, off on, ...).  Returns the launches of each case's runs at 128
+    KiB."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    layout = GenomeLayout.from_targets(chrom_lengths())
+    with Environ(GCI_NO_OVERLAP=None, GCI_FORCE_OVERLAP=None):
+        for backend in ("device", "streamed"):
+            check(pipeline._make_overlap_accumulator(backend, [], ["x.bam"], False, layout,
+                                                     15, dev) is None,
+                  f"the default gate turned the overlap on for --device {backend}")
+    log("[cli overlap] the default gate keeps the overlap off on the card "
+        "(device and streamed backends)")
+    launches = {}
+    for key, case in CLI_OVERLAP_CASES.items():
+        paths, prefix, events_dir, _, work = inputs[case["inputs"]]
+        for chunk_bytes in (DEFAULT_BAM_CHUNK_BYTES, OVERLAP_BAM_CHUNK_BYTES):
+            label = f"[cli overlap] {case['label']}, BAM chunks of {chunk_bytes} bytes"
+            runs = {True: [], False: []}
+            with _Setting(chunk_bytes, case.get("limit")):
+                for turn in range(CLI_OVERLAP_TURNS):
+                    for on in ((True, False) if turn % 2 == 0 else (False, True)):
+                        out = os.path.join(work, f"{key}_{'on' if on else 'off'}")
+                        runs[on].append(cli_overlap_run(case, paths, prefix, events_dir,
+                                                        out, on, label))
+            for on in (True, False):
+                shutil.rmtree(os.path.join(work, f"{key}_{'on' if on else 'off'}"))
+            for r in runs[True]:
+                check(r["launches"] == runs[False][0]["launches"],
+                      f"{label}: launches with the overlap differ from without it")
+            peaks = {on: max(r["peak"] for r in runs[on]) for on in runs}
+            if chunk_bytes == OVERLAP_BAM_CHUNK_BYTES:
+                for r in runs[True]:
+                    check(min(t["bam_chunks"] for t in r["types"]) >= OVERLAP_MIN_BAM_CHUNKS,
+                          f"{label}: fewer than {OVERLAP_MIN_BAM_CHUNKS} BAM chunks a type")
+                if case["inputs"] == "t2t":
+                    check(peaks[True] < RESIDENT_MH63_PEAK,
+                          f"{label}: sweep peak {peaks[True]} bytes not below the "
+                          "resident path's")
+                launches[key] = runs[True][0]["launches"]
+            if case["inputs"] == "t2t":
+                check(peaks[False] < RESIDENT_MH63_PEAK,
+                      f"{label}: streamed peak {peaks[False]} bytes not below the "
+                      "resident path's")
+            walls = {on: sorted(r["wall"] for r in runs[on]) for on in runs}
+            log(f"{label}: all {len(outputs(prefix))} outputs of every run identical to "
+                f"the events run; launches {runs[True][0]['launches']} with and without "
+                "the overlap")
+            for on, name in ((True, "GCI_FORCE_OVERLAP"), (False, "GCI_NO_OVERLAP")):
+                w = walls[on]
+                log(f"{label}: {name} walls {json.dumps(w)} s, median {w[len(w) // 2]:.4f}, "
+                    f"spread {w[-1] - w[0]:.4f}; peak {peaks[on]} bytes")
+            for r in runs[True]:
+                log(f"{label}: GCI_FORCE_OVERLAP per type " + json.dumps(r["types"]))
+            log(f"{label}: stages GCI_FORCE_OVERLAP " + json.dumps(runs[True][-1]["stages"]))
+            log(f"{label}: stages GCI_NO_OVERLAP " + json.dumps(runs[False][-1]["stages"]))
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
@@ -1715,10 +1910,12 @@ def main() -> None:
         lengths = chrom_lengths()
         paths = make_inputs(os.path.join(work, "inputs"), lengths, gap_runs(lengths),
                             N_HIFI, N_ONT, list(lengths)[10], SEED)
-        main_launches, packed_peak = phase_main_path(paths, work)
-        launches.update(main_launches)
-        launches["streamed_mh63"] = phase_streamed_mh63(paths, work)
-        launches["streamed_3g"], t2t_paths, t2t_dir = phase_streamed_t2t(work, packed_peak)
+        with Environ(GCI_NO_OVERLAP=1):  # phases 5 and 6: the path without the overlap
+            main_launches, packed_peak = phase_main_path(paths, work)
+            launches.update(main_launches)
+            launches["streamed_mh63"] = phase_streamed_mh63(paths, work)
+            launches["streamed_3g"], t2t_paths, t2t_dir = phase_streamed_t2t(
+                work, packed_peak)
         phase_tools(paths, t2t_paths, t2t_dir, work)
         inputs = {
             "mh63": (paths, PREFIX, os.path.join(work, "events"), lengths, work),
@@ -1729,6 +1926,7 @@ def main() -> None:
         launches.update(phase_sharded(paths, work, dev))
         launches.update(phase_delta_readout(inputs, dev))
         launches["helpers"] = phase_helpers(paths, dev)
+        launches.update(phase_cli_overlap(inputs))
     check("jax" not in sys.modules and "gci_tpu" not in sys.modules,
           "jax or the JAX package was imported")
 

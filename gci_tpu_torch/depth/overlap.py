@@ -15,9 +15,9 @@ asynchronous ``index_add_``) while the native producer inflates the next.
   passed while the next BAM chunk inflates;
 * ``feed_bam``: the pack loop that feeds either from one BAM.
 
-``pipeline.run_filter`` does not take this path: on the H100 it was slower
-than the depth of the curated reads in every case measured (PERF.md), so
-only the tests and ``chip_smoke.py`` run it, against that path.
+``pipeline.run_filter`` builds either accumulator for a read type of one
+BAM and no PAF (``pipeline._make_overlap_accumulator``) and feeds it
+chunk by chunk as ``feed_bam`` does.
 
 Only live rows are scattered, at exact indices: torch's ``index_add_`` has
 no ``mode="drop"``, so neither the reference's power-of-two padding of the
@@ -43,19 +43,104 @@ from gci_tpu_torch.io.bam import BamStream
 from gci_tpu_torch.io.names import keys_view
 
 
+def _lex_searchsorted(ka, kb, qa, qb) -> np.ndarray:
+    """Left insertion points of the keys (qa, qb) among (ka, kb), sorted as
+    pairs of uint64 words.  The search runs on the first word; a query
+    whose first word a row shares is placed past it by the second, and the
+    rare run of rows sharing a first word (a 64-bit collision) is searched
+    on its own."""
+    n = ka.shape[0]
+    lo = np.searchsorted(ka, qa)
+    if n == 0:
+        return lo
+    at = np.minimum(lo, n - 1)
+    pos = lo + ((ka[at] == qa) & (kb[at] < qb))
+    nxt = np.minimum(lo + 1, n - 1)
+    for i in np.flatnonzero((lo + 1 < n) & (ka[nxt] == qa)).tolist():
+        hi = int(np.searchsorted(ka, qa[i], side="right"))
+        pos[i] = lo[i] + np.searchsorted(kb[lo[i]:hi], qb[i])
+    return pos
+
+
+class _Pocket:
+    """Live-key index of one or more consecutive chunks, sorted by key: the
+    key's two uint64 words, each row's id in the fold's row table, whether
+    it is still live, and how many chunks were folded into it."""
+
+    __slots__ = ("ka", "kb", "rid", "alive", "chunks")
+
+    def __init__(self, ka, kb, rid, chunks: int) -> None:
+        self.ka, self.kb, self.rid = ka, kb, rid
+        self.alive = np.ones(ka.shape[0], dtype=bool)
+        self.chunks = chunks
+
+    def take(self, qa, qb) -> tuple[np.ndarray, np.ndarray]:
+        """(query positions, row ids) of the queries live here; those rows
+        are no longer live."""
+        posc = np.minimum(_lex_searchsorted(self.ka, self.kb, qa, qb), self.ka.shape[0] - 1)
+        q = np.flatnonzero((self.ka[posc] == qa) & (self.kb[posc] == qb) & self.alive[posc])
+        self.alive[posc[q]] = False
+        return q, self.rid[posc[q]]
+
+    def merged_with(self, newer: "_Pocket") -> "_Pocket":
+        """One pocket of both pockets' live rows, sorted by key.  A name is
+        live in at most one pocket, so the live keys of the two are distinct
+        and each of ``newer``'s goes where the search puts it."""
+        a, b = np.flatnonzero(self.alive), np.flatnonzero(newer.alive)
+        at_b = _lex_searchsorted(self.ka[a], self.kb[a], newer.ka[b], newer.kb[b])
+        at_b += np.arange(b.shape[0])
+        from_a = np.ones(a.shape[0] + b.shape[0], dtype=bool)
+        from_a[at_b] = False
+        at_a = np.flatnonzero(from_a)
+        parts = []
+        for old, new in ((self.ka, newer.ka), (self.kb, newer.kb), (self.rid, newer.rid)):
+            out = np.empty(from_a.shape[0], old.dtype)
+            out[at_b], out[at_a] = new[b], old[a]
+            parts.append(out)
+        return _Pocket(*parts, self.chunks + newer.chunks)
+
+
 class LastWinsFold:
     """Incremental last-wins name dedup across packed chunks.
 
     Chunks arrive in file order, already deduped *within* the chunk.  For
     each chunk, returns the rows that a record in this chunk replaces (the
     currently-live record of the same name from an earlier chunk); those
-    rows' intervals are retracted from the device delta.  Membership tests
-    run against per-chunk sorted "pockets" (no global re-sort per chunk).
+    rows' intervals are retracted from the device delta.
+
+    Every row folded is kept in a row table; membership tests run against
+    sorted "pockets" of keys and row ids, merged in a log-structured way:
+    each chunk starts a pocket of its own, and while the newest pocket holds
+    at least half as many chunks as the one before it, the two merge into
+    one of their live rows.  Pocket ``i`` then holds more than twice the
+    chunks of pocket ``i + 1``, so after ``C`` chunks at most
+    ``floor(log2 C) + 1`` pockets exist: each chunk probes O(log C) pockets,
+    and each row is merged O(log C) times.  (``gci_tpu`` keeps one pocket
+    per chunk, so each chunk probes every earlier one.)  Keys are searched
+    as two uint64 words, not as one structured value.  The retracted rows
+    come back in ``gci_tpu``'s order: by the chunk they came from, then in
+    the order of the probing chunk's keys.
     """
 
     def __init__(self) -> None:
-        # per pocket: (sorted void16 keys, rows (n, 3) int64, alive mask)
-        self._pockets: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        self._pockets: list[_Pocket] = []  # oldest first
+        # (tid, start, end, index of the non-empty chunk) by row id
+        self._rows = np.empty((1024, 4), np.int64)
+        self._n_rows = 0
+        self._chunks = 0  # non-empty chunks folded so far
+
+    def _append_rows(self, tid, start, end) -> np.ndarray:
+        """The chunk's rows into the table (grown by doubling); their ids."""
+        n0, n1 = self._n_rows, self._n_rows + tid.shape[0]
+        if n1 > self._rows.shape[0]:
+            grown = np.empty((max(n1, 2 * self._rows.shape[0]), 4), np.int64)
+            grown[:n0] = self._rows[:n0]
+            self._rows = grown
+        for j, col in enumerate((tid, start, end, self._chunks)):
+            self._rows[n0:n1, j] = col
+        self._n_rows = n1
+        self._chunks += 1
+        return np.arange(n0, n1, dtype=np.int64)
 
     def fold(
         self, kv: np.ndarray, tid: np.ndarray, start: np.ndarray,
@@ -65,29 +150,29 @@ class LastWinsFold:
 
         ``kv`` is the chunk's void16 key view (unique within the chunk).
         """
-        retract: list[np.ndarray] = []
-        if kv.shape[0]:
-            for keys, rows, alive in self._pockets:
-                pos = np.searchsorted(keys, kv)
-                posc = np.minimum(pos, keys.shape[0] - 1)
-                hit = (keys[posc] == kv) & alive[posc]
-                if hit.any():
-                    h = posc[hit]
-                    retract.append(rows[h])
-                    alive[h] = False
-            order = np.argsort(kv)
-            rows = np.stack(
-                [tid.astype(np.int64), start.astype(np.int64),
-                 end.astype(np.int64)], axis=1,
-            )[order]
-            self._pockets.append(
-                (kv[order], rows, np.ones(kv.shape[0], dtype=bool))
-            )
-        if retract:
-            r = np.concatenate(retract)
-            return r[:, 0], r[:, 1], r[:, 2]
         e = np.empty(0, np.int64)
-        return e, e, e
+        if kv.shape[0] == 0:
+            return e, e, e
+        qa, qb = np.ascontiguousarray(kv["a"]), np.ascontiguousarray(kv["b"])
+        hits = [p.take(qa, qb) for p in self._pockets]  # (query positions, row ids)
+        rid = self._append_rows(tid, start, end)
+        # the last-wins dedup hands its survivors over sorted by key already
+        if not np.all((qa[1:] > qa[:-1]) | ((qa[1:] == qa[:-1]) & (qb[1:] > qb[:-1]))):
+            order = np.lexsort((qb, qa))
+            qa, qb, rid = qa[order], qb[order], rid[order]
+        self._pockets.append(_Pocket(qa, qb, rid, 1))
+        while (len(self._pockets) > 1
+               and 2 * self._pockets[-1].chunks >= self._pockets[-2].chunks):
+            newer = self._pockets.pop()
+            merged = self._pockets.pop().merged_with(newer)
+            if merged.ka.shape[0]:
+                self._pockets.append(merged)
+        q, h = (np.concatenate(c) for c in zip(*hits)) if hits else (e, e)
+        if q.shape[0] == 0:
+            return e, e, e
+        r = self._rows[h]
+        r = r[np.lexsort((q, r[:, 3]))]
+        return r[:, 0], r[:, 1], r[:, 2]
 
 
 def _global_intervals(layout: GenomeLayout, flank_len: int, tid, start, end):

@@ -60,19 +60,23 @@ def paf_filter_mask(
 
 
 def dedup_last_wins(name_keys: np.ndarray, kept: np.ndarray) -> np.ndarray:
-    """Indices of the last surviving record per read name, in file order.
+    """Indices of the last surviving record per read name.
 
     ``name_keys`` is (n, 2) uint64; ``kept`` a boolean mask.  Returns int64
-    indices into the original arrays (one per unique surviving name).
+    indices into the original arrays (one per unique surviving name), in
+    the order of the names' keys as pairs of uint64 words: the order of
+    ``gci_tpu``'s ``np.unique`` of the structured keys, found here by a
+    stable sort on the two words, which keeps each name's records in file
+    order.
     """
     idx = np.flatnonzero(kept)
     if idx.size == 0:
         return idx
-    kv = keys_view(name_keys[idx])
-    uniq, inverse = np.unique(kv, return_inverse=True)
-    last = np.zeros(uniq.shape[0], dtype=np.int64)
-    np.maximum.at(last, inverse, idx)
-    return last
+    a, b = name_keys[idx, 0], name_keys[idx, 1]
+    order = np.lexsort((b, a))
+    a, b = a[order], b[order]
+    last = np.append((a[1:] != a[:-1]) | (b[1:] != b[:-1]), True)
+    return idx[order[last]]
 
 
 def high_qual_keys(

@@ -21,11 +21,16 @@ shared BAM and its line range of every PAF, the packed survivors are
 reconciled by a host all-gather before curation, and only process 0
 writes files.
 
-Every read type's depth comes from its curated reads, after the whole BAM
-is packed.  ``gci_tpu`` overlaps the pack of a one-BAM no-PAF read type
-with the device scatter; the port's copy of that overlap
-(``depth/overlap.py``) is not on this path, because on the H100 it was
-slower than this path in every case measured (PERF.md).
+A read type of one BAM and no PAF, in one process, on the ``device`` or
+``streamed`` backend, can overlap its pack with the device scatter, as
+``gci_tpu``'s does (``_make_overlap_accumulator``, ``depth/overlap.py``):
+each BAM chunk's last-wins survivors fold into an accumulator on the device
+while the native producer inflates the next chunk, and the depth comes
+from that accumulator.  On a CUDA device it is off unless
+``GCI_FORCE_OVERLAP`` is set (it was slower on the H100); ``GCI_NO_OVERLAP``
+turns it off everywhere.  Every other read type's depth comes from its
+curated reads, after the whole BAM is packed.  An error in the overlap is
+the run's error: there is no fallback to the other path.
 """
 from __future__ import annotations
 
@@ -87,6 +92,58 @@ def resolve_backend(depth_backend: str, torch_device=None):
     if depth_backend not in ("device", "streamed", "sharded"):
         return depth_backend, None
     return depth_backend, resolve_device("cuda" if torch_device is None else torch_device)
+
+
+def _make_overlap_accumulator(depth_backend, paf_files, bam_files, multihost, layout,
+                              flank_len, torch_device):
+    """Pack<->scatter overlap accumulator on ``torch_device``, where the
+    semantics allow it (counterpart of ``gci_tpu.pipeline``'s); None runs
+    the depth of the curated reads instead.
+
+    Only the single-BAM no-PAF single-process shape qualifies: curation is
+    an identity fold there, so the last-wins dedup can fold chunk by chunk
+    and each chunk's deltas scatter asynchronously during pack (reference
+    analogue: the GCI.py:146-169 window streaming).  Multi-file or PAF runs
+    need the whole cross-file curation before any depth math.  The
+    ``device`` backend (a genome within the switch point: ``run_filter``
+    has switched larger ones to ``streamed``) accumulates a resident delta
+    for ``DeviceDepth.from_delta``; ``streamed`` a coordinate sweep over
+    chunks of ``GCI_STREAM_CHUNK_SLOTS`` slots (``streamed.CHUNK_SLOTS``
+    unless set).
+
+    ``GCI_NO_OVERLAP`` turns it off.  By default it is also off on a CUDA
+    device, and ``GCI_FORCE_OVERLAP`` turns it on there (``gci_tpu``'s
+    default gate, skipped by the same variable, turns it off behind a
+    high-latency link to a TPU).  On the card an ``index_add_`` is queued
+    in microseconds, but the overlap's host work per BAM chunk (a last-wins
+    dedup, the fold, the event rows) cost more than the depth stage it
+    hides (0.01-0.05 s a read type): at the default 64 MiB BAM chunk the
+    dual-type CLI took 0.09-0.43 s longer with it at MH63 size (medians of
+    three turns, both branches of ``from_delta``, four chip runs) and
+    0.02-0.42 s longer at 3.1 Gbp (NVIDIA H100 80GB HBM3, 700.00 W;
+    ``chip_smoke.py`` phase 11, PERF.md §6).
+    """
+    if paf_files or len(bam_files) != 1 or multihost:
+        return None
+    if depth_backend not in ("device", "streamed"):
+        return None
+    if os.environ.get("GCI_NO_OVERLAP"):
+        return None
+    if torch_device.type == "cuda" and not os.environ.get("GCI_FORCE_OVERLAP"):
+        return None
+    from gci_tpu_torch.depth import streamed
+    from gci_tpu_torch.depth.overlap import DeltaAccumulator, SweepAccumulator
+
+    if depth_backend == "device":
+        return DeltaAccumulator(layout, flank_len, device=torch_device)
+    # only the genome chunks near the read frontier hold device buffers;
+    # each chunk the sorted reads have passed is scanned while the producer
+    # inflates the next BAM chunk
+    return SweepAccumulator(
+        layout, flank_len,
+        chunk_slots=int(os.environ.get("GCI_STREAM_CHUNK_SLOTS", streamed.CHUNK_SLOTS)),
+        device=torch_device,
+    )
 
 
 def run_filter(
@@ -223,7 +280,12 @@ def run_filter(
     # --- BAM branch (GCI.py:257-270): streamed scan, vectorized cascade;
     # each chunk is filtered and compacted while the native producer
     # inflates the next, and the last-wins dedup runs over the concatenated
-    # per-chunk survivors (file order, GCI.py:166)
+    # per-chunk survivors (file order, GCI.py:166).  On the overlap's shape
+    # each chunk's last-wins survivors also fold into the accumulator on the
+    # card (retracting the records they replace) while the producer inflates
+    # the next chunk
+    acc = _make_overlap_accumulator(depth_backend, paf_files, bam_files, multihost,
+                                    layout, flank_len, torch_device)
     empty_hq = np.empty(0, dtype=[("a", np.uint64), ("b", np.uint64)])
     for file_no, path in enumerate(bam_files):
         stream = stream0 if file_no == 0 else open_stream(path)
@@ -253,6 +315,17 @@ def run_filter(
                         chunk.name_keys, mask, chunk.columns["mapq"], mq_cutoff
                     )
                 )
+                if acc is not None:
+                    surv = dedup_last_wins(chunk.name_keys, mask)
+                    if surv.size:
+                        acc.add_chunk(
+                            keys_view(chunk.name_keys[surv]),
+                            gtid[surv].astype(np.int32),
+                            chunk.columns["pos"][surv].astype(np.int64),
+                            chunk.columns["ref_end"][surv].astype(np.int64),
+                        )
+                # the candidate rows are collected on the overlap path too:
+                # they back the curation bookkeeping and the stage's items
                 idx = np.flatnonzero(mask)
                 if idx.size:
                     cand_parts.append((
@@ -307,7 +380,21 @@ def run_filter(
         f"{log_reads_type}:depth_accumulate",
         items=int(curated.start.shape[0]), unit="reads",
     ):
-        if depth_backend == "events":
+        if acc is not None:
+            # the delta accumulated during pack; the sweep has scanned most
+            # of its genome chunks already
+            from gci_tpu_torch.depth.overlap import DeltaAccumulator
+
+            if isinstance(acc, DeltaAccumulator):
+                from gci_tpu_torch.depth.fused import DeviceDepth
+
+                depths = DeviceDepth.from_delta(
+                    layout, acc.take_delta(), flank_len, gaps=gaps,
+                    issue_range=(-1, threshold), rows=acc.rows,
+                )
+            else:
+                depths = acc.finish()
+        elif depth_backend == "events":
             depths = events_dict_from_reads(
                 layout, curated.target_id, curated.start, curated.end, flank_len
             )

@@ -6,7 +6,8 @@ import jax at startup, so refusing new imports alone is not enough), then
 imports every module of gci_tpu_torch, runs the CLI with ``--device
 events``, ``score_only.main`` on that run's three checkpoints,
 ``run_gci`` with the device, streamed and sharded (mesh 2,2 of CPU
-positions) backends on the CPU, and
+positions) backends on the CPU, the CLI with ``--device device`` on the
+CPU through the pack<->scatter overlap in BAM chunks of 4 KiB, and
 ``overlap.feed_bam`` of the HiFi BAM into both overlap accumulators, whose
 checkpoints must equal the events run's.
 Any call that reaches either raises ModuleNotFoundError there.  A static
@@ -38,7 +39,8 @@ SCRIPT = textwrap.dedent("""
         sys.modules[name] = None
 
     import runpy
-    ref, hifi, nano, regions, out_ev, out_dv, out_st, out_sc, out_ov, out_sh = sys.argv[1:]
+    (ref, hifi, nano, regions, out_ev, out_dv, out_st, out_sc, out_ov, out_sh,
+     out_cl) = sys.argv[1:]
     sys.argv = ["gci_tpu_torch.cli", "-r", ref, "--hifi", hifi, "--nano", nano,
                 "-R", regions, "-d", out_ev, "-o", "N", "--device", "events"]
     runpy.run_module("gci_tpu_torch.cli", run_name="__main__")
@@ -69,6 +71,17 @@ SCRIPT = textwrap.dedent("""
             torch_device="cpu")
 
     import os
+    from gci_tpu_torch import cli, pipeline
+    made = []
+    gate, resolve = pipeline._make_overlap_accumulator, pipeline.resolve_backend
+    pipeline._make_overlap_accumulator = lambda *a: (made.append(gate(*a)), made[-1])[1]
+    pipeline.resolve_backend = lambda backend, device=None: resolve(backend, "cpu")
+    os.environ["GCI_BAM_CHUNK_BYTES"] = "4096"
+    cli.main(["-r", ref, "--hifi", hifi, "--nano", nano, "-R", regions, "-d", out_cl,
+              "-o", "N", "--device", "device"])
+    del os.environ["GCI_BAM_CHUNK_BYTES"]
+    assert len(made) == 2 and all(a is not None and a.chunks_added > 1 for a in made)
+
     import torch
     from gci_tpu_torch.depth import GenomeLayout
     from gci_tpu_torch.depth.fused import DeviceDepth
@@ -119,12 +132,12 @@ def test_port_runs_without_jax(tmp_path):
     regions = str(tmp_path / "regions.bed")
     with open(regions, "w") as f:
         f.write("c1\t100\t9000\nc2\t0\t7000\n")
-    out_ev, out_dv, out_st, out_sc, out_ov, out_sh = (
-        str(tmp_path / d) for d in ("ev", "dv", "st", "sc", "ov", "sh"))
+    out_ev, out_dv, out_st, out_sc, out_ov, out_sh, out_cl = (
+        str(tmp_path / d) for d in ("ev", "dv", "st", "sc", "ov", "sh", "cl"))
 
     r = subprocess.run(
         [sys.executable, "-c", SCRIPT, ref, hifi, nano, regions, out_ev, out_dv, out_st,
-         out_sc, out_ov, out_sh],
+         out_sc, out_ov, out_sh, out_cl],
         cwd=REPO, capture_output=True, text=True, timeout=600,
     )
     assert r.returncode == 0, r.stderr[-3000:]
@@ -134,6 +147,7 @@ def test_port_runs_without_jax(tmp_path):
         assert want == _read(os.path.join(out_dv, name)), name
         assert want == _read(os.path.join(out_st, name)), name
         assert want == _read(os.path.join(out_sh, name)), name
+        assert want == _read(os.path.join(out_cl, name)), name
     # the checkpoints rescored: the events run's reports again
     for name in ("N.gci", "N.regions.gci", "N.gaps.bed"):
         assert _read(os.path.join(out_ev, name)) == _read(os.path.join(out_sc, name)), name

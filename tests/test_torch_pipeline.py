@@ -170,6 +170,7 @@ def test_dual_type_streamed_many_chunks_matches_jax_events(inputs, tmp_path, mon
     import gci_tpu_torch.depth.streamed as streamed
 
     monkeypatch.setattr(streamed, "CHUNK_SLOTS", 4096)
+    monkeypatch.setenv("GCI_NO_OVERLAP", "1")  # the streamed path, not the sweep
     calls = _spy_streamed(monkeypatch)
     d_ref, d_got = str(tmp_path / "ref"), str(tmp_path / "got")
     kw = dict(hifi=[inputs["hifi"]], nano=[inputs["nano"]], reference=inputs["ref"],
@@ -193,6 +194,7 @@ def test_device_switches_to_streamed_past_the_limit(inputs, tmp_path, monkeypatc
     import gci_tpu_torch.depth.accum as accum
 
     monkeypatch.setattr(accum, "stream_slot_limit", lambda device: limit)
+    monkeypatch.setenv("GCI_NO_OVERLAP", "1")  # the streamed path, not the sweep
     calls = _spy_streamed(monkeypatch)
     d_ref, d_got = str(tmp_path / "ref"), str(tmp_path / "got")
     kw = dict(hifi=[inputs["hifi"]], nano=[inputs["nano"]], reference=inputs["ref"],
