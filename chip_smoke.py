@@ -1396,13 +1396,32 @@ class _Setting:
         self.env.__exit__(*exc)
 
 
+def fold_seconds() -> float:
+    """The registry's seconds in the span ``overlap.fold`` so far (recorded
+    while ``StageMetrics.enabled`` is set: ``--profile``, ``SpansOn``)."""
+    return get_metrics().span_totals().get("overlap.fold", {}).get("seconds", 0.0)
+
+
+class SpansOn:
+    """While active: the registry's spans record, as under ``--profile``."""
+
+    def __enter__(self):
+        m = get_metrics()
+        self._was, m.enabled = m.enabled, True
+        return self
+
+    def __exit__(self, *exc):
+        get_metrics().enabled = self._was
+
+
 def overlap_on(case, layout, bam: str, gaps, chunk_bytes: int, dev, ckpt: str) -> dict:
     """One BAM through ``feed_bam`` into the case's accumulator, then its
     depth (``from_delta`` and the boundary readback, or the sweep's
     ``finish``), written to ``ckpt``; its seconds and counts."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with RssPeak() as rss:
+    fold0 = fold_seconds()
+    with RssPeak() as rss, SpansOn():
         t0 = time.perf_counter()
         if case["acc"] == "delta":
             acc = DeltaAccumulator(layout, 15, device=dev)
@@ -1424,7 +1443,7 @@ def overlap_on(case, layout, bam: str, gaps, chunk_bytes: int, dev, ckpt: str) -
     write_depth_gz(ckpt, depths)
     del depths
     return dict(pack_s=t1 - t0, depth_s=t2 - t1, sum_s=t2 - t0,
-                fold_s=acc.fold_seconds, bam_chunks=n_bam,
+                fold_s=fold_seconds() - fold0, bam_chunks=n_bam,
                 rows_retracted=acc.rows_retracted, chunks_finalized_in_pack=finalized,
                 peak=peak, rss_above_start=rss.peak - rss.start)
 
@@ -1766,7 +1785,8 @@ class OverlapCalls:
     returns (None where the gate turns the overlap off) kept in ``made``
     (``run_filter`` looks the function up at each call), with the seconds
     spent in its ``add_chunk`` calls, the fold's included, in its
-    ``add_seconds``."""
+    ``add_seconds``, and of those in the fold (the span ``overlap.fold``,
+    recorded under ``--profile``) in its ``fold_seconds``."""
 
     def __enter__(self):
         self.made = []
@@ -1775,12 +1795,13 @@ class OverlapCalls:
         def spy(*args, **kwargs):
             acc = self._real(*args, **kwargs)
             if acc is not None:
-                acc.add_seconds, add = 0.0, acc.add_chunk
+                acc.add_seconds, acc.fold_seconds, add = 0.0, 0.0, acc.add_chunk
 
                 def timed(*a):
-                    t0 = time.perf_counter()
+                    f0, t0 = fold_seconds(), time.perf_counter()
                     add(*a)
                     acc.add_seconds += time.perf_counter() - t0
+                    acc.fold_seconds += fold_seconds() - f0
 
                 acc.add_chunk = timed
             self.made.append(acc)

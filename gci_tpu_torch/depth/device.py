@@ -47,6 +47,7 @@ from gci_tpu_torch.depth.scan import (
 )
 from gci_tpu_torch.device import resolve_device
 from gci_tpu_torch.parallel import distributed
+from gci_tpu_torch.utils.metrics import count
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -126,7 +127,8 @@ def scatter_events_into(buf: torch.Tensor, events) -> torch.Tensor:
     and an index outside ``[0, len(buf))`` raises IndexError.  Checked
     indices go to the device as int32 where the length allows it (half the
     bytes of int64).  Integer adds commute, so the atomics' order on the
-    card cannot change the result.
+    card cannot change the result.  The bytes sent to a CUDA device count
+    in ``copies.h2d_bytes``.
     """
     idx = [np.asarray(i, np.int64) for i, _ in events]
     val = [
@@ -143,14 +145,20 @@ def scatter_events_into(buf: torch.Tensor, events) -> torch.Tensor:
         )
     if n <= _INT32_MAX:
         idx = idx.astype(np.int32)
+    if buf.is_cuda:
+        count("copies.h2d_bytes", idx.nbytes + val.nbytes)
     buf.index_add_(0, torch.from_numpy(idx).to(buf.device),
                    torch.from_numpy(val).to(buf.device))
     return buf
 
 
 def _to_host(parts) -> list[np.ndarray]:
-    """Device int tensors as int64 host arrays, in one transfer."""
-    packed = torch.cat([p.to(torch.int64) for p in parts]).cpu().numpy()
+    """Device int tensors as int64 host arrays, in one transfer (its bytes
+    count in ``copies.d2h_bytes`` from a CUDA device)."""
+    packed = torch.cat([p.to(torch.int64) for p in parts])
+    if packed.is_cuda:
+        count("copies.d2h_bytes", packed.nbytes)
+    packed = packed.cpu().numpy()
     bounds = np.cumsum([0] + [p.shape[0] for p in parts])
     return [packed[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
 

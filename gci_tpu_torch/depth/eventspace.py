@@ -19,6 +19,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from gci_tpu_torch.intervals.collapse import runs_to_intervals
+from gci_tpu_torch.utils.metrics import span
 
 if TYPE_CHECKING:
     from gci_tpu_torch.depth.accum import GenomeLayout
@@ -135,12 +136,14 @@ class DepthEvents:
         return DepthEvents(pos, vals, self.length)._dedup()
 
     def maximum(self, other: "DepthEvents") -> "DepthEvents":
-        """Per-base max of two depth functions (two-type merge, GCI.py:332-353)."""
+        """Per-base max of two depth functions (two-type merge, GCI.py:332-353);
+        span ``merge.max``."""
         assert self.length == other.length
-        b = np.union1d(self.boundaries, other.boundaries)
-        va = self.values[np.searchsorted(self.boundaries, b, side="right") - 1]
-        vb = other.values[np.searchsorted(other.boundaries, b, side="right") - 1]
-        return DepthEvents(b, np.maximum(va, vb), self.length)._dedup()
+        with span("merge.max"):
+            b = np.union1d(self.boundaries, other.boundaries)
+            va = self.values[np.searchsorted(self.boundaries, b, side="right") - 1]
+            vb = other.values[np.searchsorted(other.boundaries, b, side="right") - 1]
+            return DepthEvents(b, np.maximum(va, vb), self.length)._dedup()
 
     def collapse(
         self,

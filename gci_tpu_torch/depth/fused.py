@@ -52,6 +52,7 @@ from gci_tpu_torch.depth.scan import (
     fused_depth_scan_packed,
     rise_fall,
 )
+from gci_tpu_torch.utils.metrics import count, span
 
 # depth-field bound of the packed event word (read_delta<<2): the scan is
 # exact iff depth < 2^29 at every position.  At or above it the constructors
@@ -139,9 +140,10 @@ def _batched_flags_readback(array, layout: GenomeLayout, flags, masks: tuple,
     read back in one transfer.  Counts are exact (the reference pads them
     to powers of two for static XLA shapes).  Returns (list of int64 index
     arrays, gathered values, values at the offsets)."""
-    idx = compact_flags(flags, masks, capacity_for(capacity, flags.shape[0], len(masks)))
-    *out_idx, gathered, offset_vals = _to_host(
-        idx + [array[idx[gather_stream]], _offset_values(array, layout)])
+    with span("fused.readback"):
+        idx = compact_flags(flags, masks, capacity_for(capacity, flags.shape[0], len(masks)))
+        *out_idx, gathered, offset_vals = _to_host(
+            idx + [array[idx[gather_stream]], _offset_values(array, layout)])
     return out_idx, gathered, offset_vals
 
 
@@ -156,12 +158,15 @@ def _runs_readback(array, layout: GenomeLayout, capacity: int | None = None):
 
 def compact_indices(bitmap: torch.Tensor) -> np.ndarray:
     """Device-side compaction of a nonzero bitmap into sorted int64 indices
-    (one exact-size compaction; O(k) transfer)."""
+    (one exact-size compaction; O(k) transfer, counted in
+    ``copies.d2h_bytes`` from a CUDA device)."""
     if bitmap.dtype in (torch.bool, torch.int8, torch.uint8):
         x, mask = bitmap.view(torch.int8), 0xFF
     else:
         x, mask = (bitmap != 0).view(torch.int8), 1
     (idx,) = compact_flags(x, (mask,))
+    if idx.is_cuda:
+        count("copies.d2h_bytes", idx.nbytes)
     return idx.cpu().numpy()
 
 
@@ -173,18 +178,26 @@ def _event_rows(layout: GenomeLayout, n_reads: int, gaps, flank_len: int) -> int
     return 2 * (n_reads + n_gaps + len(_valid_intervals(layout, flank_len)[0]))
 
 
+def _scatter(pad_total: int, device: torch.device, events) -> torch.Tensor:
+    """``scatter_events`` in the span ``fused.scatter``."""
+    with span("fused.scatter"):
+        return scatter_events(pad_total, device, events)
+
+
 def packed_event_word(layout: GenomeLayout, target_id: np.ndarray,
                       start: np.ndarray, end: np.ndarray, flank_len: int,
                       gaps, device: torch.device) -> torch.Tensor:
     """The packed event word ``read_delta<<2 | gap_event<<1 | valid_event``
     of one read set, built on the device by one scatter (the reference's
-    ``_packed_events_fn`` up to its scan)."""
-    gs, ge, live = pack_read_deltas(layout, target_id, start, end, flank_len)
-    gap_s, gap_e = gap_interval_events(layout, gaps)
-    _check_disjoint(gap_s, gap_e)
-    val_s, val_e = _valid_intervals(layout, flank_len)
-    live4 = live << 2
-    return scatter_events(DeviceDepth.pad_total_for(layout.total_slots), device, [
+    ``_packed_events_fn`` up to its scan).  Spans ``fused.pack`` (the host
+    pack) and ``fused.scatter``."""
+    with span("fused.pack"):
+        gs, ge, live = pack_read_deltas(layout, target_id, start, end, flank_len)
+        gap_s, gap_e = gap_interval_events(layout, gaps)
+        _check_disjoint(gap_s, gap_e)
+        val_s, val_e = _valid_intervals(layout, flank_len)
+        live4 = live << 2
+    return _scatter(DeviceDepth.pad_total_for(layout.total_slots), device, [
         (gs, live4), (ge, -live4), (gap_s, 2), (gap_e, -2), (val_s, 1), (val_e, -1),
     ])
 
@@ -278,24 +291,31 @@ class DeviceDepth(ResidentDepth):
         gaps).  Depth is bounded by the read count: below
         ``PACKED_DEPTH_LIMIT`` reads the packed word is scanned, else a
         plain delta under separate flag bytes.
+
+        The whole is the span ``fused.build``; inside it ``fused.pack``,
+        ``fused.scatter``, ``fused.scan``, ``fused.readback`` and
+        ``fused.intervals``.
         """
-        rows = _event_rows(layout, start.shape[0], gaps, flank_len)
-        if start.shape[0] < PACKED_DEPTH_LIMIT:
-            # no local name for the word: _from_word frees it once it is scanned
-            return cls._from_word(
-                layout,
-                packed_event_word(layout, target_id, start, end, flank_len, gaps, device),
-                gaps, flank_len, issue_range, rows,
+        with span("fused.build"):
+            rows = _event_rows(layout, start.shape[0], gaps, flank_len)
+            if start.shape[0] < PACKED_DEPTH_LIMIT:
+                # no local name for the word: _from_word frees it once it is scanned
+                return cls._from_word(
+                    layout,
+                    packed_event_word(layout, target_id, start, end, flank_len, gaps, device),
+                    gaps, flank_len, issue_range, rows,
+                )
+            pad_total = cls.pad_total_for(layout.total_slots)
+            # the flags first: their transient prefix buffers then do not
+            # coexist with the delta
+            with span("fused.scatter"):
+                flags = flags_for(layout, gaps, flank_len, pad_total, device)
+            with span("fused.pack"):
+                gs, ge, live = pack_read_deltas(layout, target_id, start, end, flank_len)
+            return cls._from_flags_scan(
+                layout, _scatter(pad_total, device, [(gs, live), (ge, -live)]),
+                flags, gaps, flank_len, issue_range, rows,
             )
-        pad_total = cls.pad_total_for(layout.total_slots)
-        # the flags first: their transient prefix buffers then do not
-        # coexist with the delta
-        flags = flags_for(layout, gaps, flank_len, pad_total, device)
-        gs, ge, live = pack_read_deltas(layout, target_id, start, end, flank_len)
-        return cls._from_flags_scan(
-            layout, scatter_events(pad_total, device, [(gs, live), (ge, -live)]),
-            flags, gaps, flank_len, issue_range, rows,
-        )
 
     @classmethod
     def from_delta(
@@ -319,33 +339,39 @@ class DeviceDepth(ResidentDepth):
         is freed once scanned if the caller holds no other reference.
         A read delta's depth is never negative and at most the sum of its
         positive entries; where that sum reaches ``PACKED_DEPTH_LIMIT`` the
-        packed word could wrap, so the flags scan runs instead.
+        packed word could wrap, so the flags scan runs instead.  Spans as
+        in ``from_reads``, with no ``fused.pack``.
         """
         pad_total = int(delta.shape[0])
         if pad_total != cls.pad_total_for(layout.total_slots):
             raise ValueError(f"delta has {pad_total} slots, layout {layout.total_slots}")
         if rows is not None:
             rows += _event_rows(layout, 0, gaps, flank_len)
-        if int(delta.clamp(min=0).sum(dtype=torch.int64)) >= PACKED_DEPTH_LIMIT:
-            flags = flags_for(layout, gaps, flank_len, pad_total, delta.device)
-            return cls._from_flags_scan(layout, delta, flags, gaps, flank_len,
-                                        issue_range, rows)
-        gap_s, gap_e = gap_interval_events(layout, gaps)
-        _check_disjoint(gap_s, gap_e)
-        val_s, val_e = _valid_intervals(layout, flank_len)
-        scatter_events_into(delta.mul_(4), [
-            (gap_s, 2), (gap_e, -2), (val_s, 1), (val_e, -1),
-        ])
-        lo, hi = issue_range
-        raw, out_flags = fused_depth_scan_packed(delta, int(lo), int(hi))
-        del delta
-        return cls._from_packed_scan(layout, pad_total, raw, out_flags, gaps,
-                                     flank_len, lo, hi, rows)
+        with span("fused.build"):
+            if int(delta.clamp(min=0).sum(dtype=torch.int64)) >= PACKED_DEPTH_LIMIT:
+                with span("fused.scatter"):
+                    flags = flags_for(layout, gaps, flank_len, pad_total, delta.device)
+                return cls._from_flags_scan(layout, delta, flags, gaps, flank_len,
+                                            issue_range, rows)
+            gap_s, gap_e = gap_interval_events(layout, gaps)
+            _check_disjoint(gap_s, gap_e)
+            val_s, val_e = _valid_intervals(layout, flank_len)
+            with span("fused.scatter"):
+                scatter_events_into(delta.mul_(4), [
+                    (gap_s, 2), (gap_e, -2), (val_s, 1), (val_e, -1),
+                ])
+            lo, hi = issue_range
+            with span("fused.scan"):
+                raw, out_flags = fused_depth_scan_packed(delta, int(lo), int(hi))
+            del delta
+            return cls._from_packed_scan(layout, pad_total, raw, out_flags, gaps,
+                                         flank_len, lo, hi, rows)
 
     @classmethod
     def _from_word(cls, layout, word, gaps, flank_len, issue_range, rows):
         lo, hi = issue_range
-        raw, out_flags = fused_depth_scan_packed(word, int(lo), int(hi))
+        with span("fused.scan"):
+            raw, out_flags = fused_depth_scan_packed(word, int(lo), int(hi))
         pad_total = word.shape[0]
         del word
         return cls._from_packed_scan(layout, pad_total, raw, out_flags, gaps,
@@ -367,7 +393,8 @@ class DeviceDepth(ResidentDepth):
         """The flags scan of a plain read delta under ``flags_for`` bytes;
         the flags become the gap marks (bit0) when there are gaps."""
         lo, hi = issue_range
-        raw, out_flags = fused_depth_scan_flags(delta, flags, int(lo), int(hi))
+        with span("fused.scan"):
+            raw, out_flags = fused_depth_scan_flags(delta, flags, int(lo), int(hi))
         pad_total = delta.shape[0]
         del delta
         has_gaps = gap_interval_events(layout, gaps)[0].shape[0] > 0
@@ -388,13 +415,14 @@ class DeviceDepth(ResidentDepth):
             _batched_flags_readback(raw, layout, out_flags, (1, 2, 4), 2,
                                     None if rows is None else rows + 1)
         )
-        intervals = edge_indices_to_intervals(
-            layout, rise_idx, fall_idx, flank_len
-        )
-        dd = cls(layout, raw, pad_total, gap_marks, gaps_src=gaps,
-                 change_idx=change_idx, gap_bit=gap_bit,
-                 change_bound=change_idx.shape[0])
-        dd._set_gather_map(change_idx, change_vals, offset_vals)
+        with span("fused.intervals"):
+            intervals = edge_indices_to_intervals(
+                layout, rise_idx, fall_idx, flank_len
+            )
+            dd = cls(layout, raw, pad_total, gap_marks, gaps_src=gaps,
+                     change_idx=change_idx, gap_bit=gap_bit,
+                     change_bound=change_idx.shape[0])
+            dd._set_gather_map(change_idx, change_vals, offset_vals)
         key = (float(lo), float(hi), int(flank_len))
         dd._pending_masked_edges = (key, intervals)
         if gap_marks is None:
@@ -451,17 +479,19 @@ class DeviceDepth(ResidentDepth):
                            change_bound=bound)
 
     def maximum(self, other: "DeviceDepth") -> "DeviceDepth":
-        """Per-base two-type max, on device (GCI.py:332-353)."""
+        """Per-base two-type max, on device (GCI.py:332-353); span
+        ``merge.max``."""
         if self.pad_total != other.pad_total:
             raise ValueError("two-type max of depths over different layouts")
         # a boundary of the max is a boundary of either depth
         bound = (None if self.change_bound is None or other.change_bound is None
                  else self.change_bound + other.change_bound)
-        return DeviceDepth(
-            self.layout, torch.maximum(self.array, other.array), self.pad_total,
-            self.gap_marks, gaps_src=self._gaps_src, gap_bit=self.gap_bit,
-            change_bound=bound,
-        )
+        with span("merge.max"):
+            return DeviceDepth(
+                self.layout, torch.maximum(self.array, other.array), self.pad_total,
+                self.gap_marks, gaps_src=self._gaps_src, gap_bit=self.gap_bit,
+                change_bound=bound,
+            )
 
     def collapse_dict(
         self,
@@ -497,26 +527,28 @@ class DeviceDepth(ResidentDepth):
     def to_events(self):
         """O(runs) host view: {target: DepthEvents} (checkpoint, regions,
         plotting).  Run boundaries come straight from the fused kernel when
-        available; values from the same batched readback."""
+        available; values from the same batched readback.  The span
+        ``checkpoint.runs``, where the runs are not cached yet."""
         if self._events is not None:
             return self._events
-        if self._change_idx is None or self._gather_pos is None:
-            # masked/merged objects: the run form of the compaction gives
-            # the boundaries and their values at once
-            self._change_idx, change_vals, offset_vals = _runs_readback(
-                self.array, self.layout, self.change_bound)
-            self.change_bound = self._change_idx.shape[0]
-            self._set_gather_map(self._change_idx, change_vals, offset_vals)
+        with span("checkpoint.runs"):
+            if self._change_idx is None or self._gather_pos is None:
+                # masked/merged objects: the run form of the compaction gives
+                # the boundaries and their values at once
+                self._change_idx, change_vals, offset_vals = _runs_readback(
+                    self.array, self.layout, self.change_bound)
+                self.change_bound = self._change_idx.shape[0]
+                self._set_gather_map(self._change_idx, change_vals, offset_vals)
 
-        def gather(all_idx: np.ndarray) -> np.ndarray:
-            # all_idx ⊆ change indices ∪ target offsets — both already on
-            # host from the packed readback; no device round-trip
-            j = np.searchsorted(self._gather_pos, all_idx)
-            return self._gather_vals[j]
+            def gather(all_idx: np.ndarray) -> np.ndarray:
+                # all_idx ⊆ change indices ∪ target offsets — both already on
+                # host from the packed readback; no device round-trip
+                j = np.searchsorted(self._gather_pos, all_idx)
+                return self._gather_vals[j]
 
-        self._events = events_from_change_indices(
-            self.layout, self._change_idx, gather
-        )
+            self._events = events_from_change_indices(
+                self.layout, self._change_idx, gather
+            )
         return self._events
 
     def materialize_dict(self) -> dict[str, np.ndarray]:

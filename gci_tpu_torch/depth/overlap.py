@@ -28,8 +28,6 @@ counterpart.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -41,6 +39,7 @@ from gci_tpu_torch.depth.streamed import chunk_runs, events_from_runs
 from gci_tpu_torch.filters import bam_filter_mask, dedup_last_wins
 from gci_tpu_torch.io.bam import BamStream
 from gci_tpu_torch.io.names import keys_view
+from gci_tpu_torch.utils.metrics import span
 
 
 def _lex_searchsorted(ka, kb, qa, qb) -> np.ndarray:
@@ -183,19 +182,17 @@ def _global_intervals(layout: GenomeLayout, flank_len: int, tid, start, end):
 
 
 class _Folding:
-    """An accumulator's last-wins fold and its counts: BAM chunks folded,
-    rows retracted, and host seconds spent in the fold."""
+    """An accumulator's last-wins fold and its counts: BAM chunks folded and
+    rows retracted; the fold's host time is the span ``overlap.fold``."""
 
     def __init__(self) -> None:
         self._fold = LastWinsFold()
         self.chunks_added = 0
         self.rows_retracted = 0
-        self.fold_seconds = 0.0
 
     def _fold_chunk(self, kv, tid, start, end):
-        t0 = time.perf_counter()
-        rows = self._fold.fold(kv, tid, start, end)
-        self.fold_seconds += time.perf_counter() - t0
+        with span("overlap.fold"):
+            rows = self._fold.fold(kv, tid, start, end)
         self.chunks_added += 1
         self.rows_retracted += int(rows[0].shape[0])
         return rows

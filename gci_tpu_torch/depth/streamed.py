@@ -43,6 +43,7 @@ from gci_tpu_torch.depth.accum import GenomeLayout, clamp_read_intervals
 from gci_tpu_torch.depth.base import events_from_change_indices
 from gci_tpu_torch.depth.device import scatter_events
 from gci_tpu_torch.depth.scan import capacity_for, compact_runs, depth_scan
+from gci_tpu_torch.utils.metrics import count, span
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
 
@@ -93,20 +94,26 @@ def _iter_depth_chunks(
     int32 depth of global slots ``[a, b)`` on ``device``, ``carry`` the
     depth at slot ``a - 1`` (0 for the first chunk), ``rows`` the read
     events scattered into it.  A consumer drops ``depth`` before it asks for
-    the next chunk, so one chunk lives at a time."""
-    gs, ge = _sorted_events(layout, target_id, start, end, flank_len)
-    n_chunks, bounds, gs_lo, gs_hi, ge_lo, ge_hi = _chunk_plan(
-        layout.total_slots, gs, ge, chunk_slots
-    )
+    the next chunk, so one chunk lives at a time.
+
+    Spans: ``streamed.sort`` (the host sorts and the chunk plan), and per
+    chunk ``streamed.scatter`` (the scatter and the scan's launch), each
+    closed before the ``yield``."""
+    with span("streamed.sort"):
+        gs, ge = _sorted_events(layout, target_id, start, end, flank_len)
+        n_chunks, bounds, gs_lo, gs_hi, ge_lo, ge_hi = _chunk_plan(
+            layout.total_slots, gs, ge, chunk_slots
+        )
     for c in range(n_chunks):
         a, b = int(bounds[c]), int(bounds[c + 1])
         carry = int(gs_lo[c] - ge_lo[c])
-        # the delta is a temporary: it dies once its scan is launched
-        depth = depth_scan(scatter_events(b - a, device, [
-            (gs[gs_lo[c]:gs_hi[c]] - a, 1),
-            (ge[ge_lo[c]:ge_hi[c]] - a, -1),
-            ((0,), carry),
-        ]))
+        with span("streamed.scatter"):
+            # the delta is a temporary: it dies once its scan is launched
+            depth = depth_scan(scatter_events(b - a, device, [
+                (gs[gs_lo[c]:gs_hi[c]] - a, 1),
+                (ge[ge_lo[c]:ge_hi[c]] - a, -1),
+                ((0,), carry),
+            ]))
         yield a, b, depth, carry, int(gs_hi[c] - gs_lo[c] + ge_hi[c] - ge_lo[c])
         del depth  # before the next chunk's delta is allocated
 
@@ -147,16 +154,19 @@ def events_from_reads_streamed(
     and O(runs) on the host.
 
     Per chunk, ``chunk_runs``: its run boundaries and their depths,
-    compacted on the card and read back.
+    compacted on the card and read back.  The whole is the span
+    ``streamed.build``; ``streamed.runs`` is the host's runs per target.
     """
-    runs = []
-    for a, _, depth, carry, rows in _iter_depth_chunks(
-        layout, target_id, start, end, flank_len,
-        CHUNK_SLOTS if chunk_slots is None else chunk_slots, device,
-    ):
-        runs.append(chunk_runs(depth, a, carry, rows))
-        del depth
-    return events_from_runs(layout, runs)
+    with span("streamed.build"):
+        runs = []
+        for a, _, depth, carry, rows in _iter_depth_chunks(
+            layout, target_id, start, end, flank_len,
+            CHUNK_SLOTS if chunk_slots is None else chunk_slots, device,
+        ):
+            runs.append(chunk_runs(depth, a, carry, rows))
+            del depth
+        with span("streamed.runs"):
+            return events_from_runs(layout, runs)
 
 
 def resident_chunk_slots(total: int, chunk_slots: int | None = None) -> int:
@@ -226,12 +236,20 @@ def chunk_runs(depth: torch.Tensor, a: int, carry: int, rows: int | None = None)
     host sync.  ``rows``, the events scattered into the chunk, bounds its
     boundaries: one falls only on an event's slot or at slot 0
     (``capacity_for`` makes that bound the compaction's capacity).
+
+    Spans ``streamed.compact`` (the compaction and its count's sync) and
+    ``streamed.readback``; the bytes read back count in ``copies.d2h_bytes``.
     """
-    capacity = capacity_for(None if rows is None else rows + 1, depth.shape[0], 1, True)
-    idx, vals = compact_runs(depth, carry if a > 0 else None, capacity)
-    got = torch.cat([idx, vals.to(torch.int64)]).cpu().numpy()
-    n = idx.shape[0]
-    return got[:n] + a, got[n:]
+    with span("streamed.compact"):
+        capacity = capacity_for(None if rows is None else rows + 1, depth.shape[0], 1, True)
+        idx, vals = compact_runs(depth, carry if a > 0 else None, capacity)
+    with span("streamed.readback"):
+        got = torch.cat([idx, vals.to(torch.int64)])
+        if got.is_cuda:
+            count("copies.d2h_bytes", got.nbytes)
+        got = got.cpu().numpy()
+        n = idx.shape[0]
+        return got[:n] + a, got[n:]
 
 
 def events_from_runs(layout: GenomeLayout, runs):

@@ -15,6 +15,8 @@ import gzip
 
 import numpy as np
 
+from gci_tpu_torch.utils.metrics import span
+
 _NL = 10  # \n
 _CR = 13  # \r
 _GT = 62  # >
@@ -119,22 +121,24 @@ def mask_gaps_in_depths(
 ) -> dict[str, np.ndarray]:
     """Zero depth over gap intervals in-place (reference GCI.py:315-329).
 
-    Values may be per-base arrays or event-space ``DepthEvents``.
+    Values may be per-base arrays or event-space ``DepthEvents``; span
+    ``mask.gaps``.
     """
     if gaps is None:
         return depths
     from gci_tpu_torch.depth.base import ResidentDepth
     from gci_tpu_torch.depth.eventspace import DepthEvents
 
-    if isinstance(depths, ResidentDepth):
-        return depths.mask_gaps(gaps)
+    with span("mask.gaps"):
+        if isinstance(depths, ResidentDepth):
+            return depths.mask_gaps(gaps)
 
-    for target, segments in gaps.items():
-        if target in depths:
-            d = depths[target]
-            if isinstance(d, DepthEvents):
-                depths[target] = d.mask_intervals(segments)
-            else:
-                for start, end in segments:
-                    d[start:end] = 0
+        for target, segments in gaps.items():
+            if target in depths:
+                d = depths[target]
+                if isinstance(d, DepthEvents):
+                    depths[target] = d.mask_intervals(segments)
+                else:
+                    for start, end in segments:
+                        d[start:end] = 0
     return depths

@@ -516,17 +516,23 @@ def run_gci(
 
         mesh = resolve_mesh(mesh, torch_device)
     ensure_host_codec()
-    with maybe_trace(profile_trace, cuda=torch_device is not None
-                     and torch_device.type == "cuda"):
-        _run_gci_inner(
-            hifi, nano, directory, prefix, map_qual, mq_cutoff, iden_percent,
-            ovlp_percent, clip_percent, flank_len, threshold, plot, depth_min,
-            depth_max, window_size, image_type, force, dist_percent, reference,
-            regions, chrs, threads, depth_backend, torch_device, mesh,
-        )
+    metrics = get_metrics()
+    was_enabled = metrics.enabled
+    metrics.enabled = was_enabled or profile  # spans and counters record
+    try:
+        with maybe_trace(profile_trace, cuda=torch_device is not None
+                         and torch_device.type == "cuda"):
+            _run_gci_inner(
+                hifi, nano, directory, prefix, map_qual, mq_cutoff, iden_percent,
+                ovlp_percent, clip_percent, flank_len, threshold, plot, depth_min,
+                depth_max, window_size, image_type, force, dist_percent, reference,
+                regions, chrs, threads, depth_backend, torch_device, mesh,
+            )
+    finally:
+        metrics.enabled = was_enabled
     if profile:
         print("\n=== stage metrics ===")
-        print(get_metrics().report())
+        print(metrics.report())
 
 
 def _host_view(depths):

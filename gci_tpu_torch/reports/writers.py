@@ -12,9 +12,9 @@ import numpy as np
 from gci_tpu_torch.depth.base import ResidentDepth
 from gci_tpu_torch.intervals import collapse_depth_dict
 from gci_tpu_torch.io.bed import write_bed_dict
-from gci_tpu_torch.utils.metrics import stage
 from gci_tpu_torch.parallel.distributed import is_primary_host
 from gci_tpu_torch.utils.files import require_writable
+from gci_tpu_torch.utils.metrics import span
 
 
 def emit_issue_bed(
@@ -30,21 +30,24 @@ def emit_issue_bed(
     """Write the issues BED and return the interval dict (GCI.py:393-419).
 
     ``precomputed`` hands over intervals already extracted elsewhere
-    (identical semantics), skipping the scan.
+    (identical semantics), skipping the scan.  Spans ``reports.issue_bed``,
+    and inside it ``reports.collapse`` and ``reports.write``.
     """
     print(f"Getting {log_reads_type} issues bed file detected by GCI ...")
     path = f"{directory}/{prefix}.{threshold}.depth.bed"
     require_writable(path, force)
-    with stage(f"issue_bed:{prefix}"):
-        if precomputed is not None:
-            merged = precomputed
-        elif isinstance(depths, ResidentDepth):
-            # device path: kernel-cached edges or one on-device edge pass
-            merged = depths.collapse_dict(-1, threshold, flank_len, 0)
-        else:
-            merged = collapse_depth_dict(depths, -1, threshold, flank_len, 0)
+    with span("reports.issue_bed"):
+        with span("reports.collapse"):
+            if precomputed is not None:
+                merged = precomputed
+            elif isinstance(depths, ResidentDepth):
+                # device path: kernel-cached edges or one on-device edge pass
+                merged = depths.collapse_dict(-1, threshold, flank_len, 0)
+            else:
+                merged = collapse_depth_dict(depths, -1, threshold, flank_len, 0)
         if is_primary_host():
-            write_bed_dict(path, merged)
+            with span("reports.write"):
+                write_bed_dict(path, merged)
     print(f"Getting {log_reads_type} issues bed file done!!!\n\n")
     return merged
 

@@ -6,6 +6,7 @@ The same fixture files go through ``gci_tpu.pipeline.run_gci`` and
 backend runs on the CPU here, through its kernels' plain versions.
 """
 import gzip
+import json
 import os
 
 import numpy as np
@@ -15,6 +16,7 @@ import torch
 from gci_tpu.pipeline import run_gci as jax_run_gci
 from gci_tpu_torch import cli
 from gci_tpu_torch.pipeline import run_gci
+from gci_tpu_torch.utils.metrics import get_metrics
 from tests.fixtures import make_bam, make_fasta, make_paf, random_reads
 
 REFS = ["chrA", "chrB", "chrC"]
@@ -281,17 +283,35 @@ def test_cli_unported_flags_exit(inputs, tmp_path, capsys, monkeypatch, flags):
     _diff_outputs(d_ev, d_got, ["U.depth.gz", "U.0.depth.bed", "U.gci", "U.gaps.bed"])
     if "--profile-trace" in flags:
         assert os.path.getsize(trace_path(flags[-1], 0)) > 0
+        # stages and spans are ranges of the trace, on the profiler's clock
+        with open(trace_path(flags[-1], 0)) as f:
+            names = {e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "user_annotation"}
+        assert {"gci.fasta_scan", "gci.reports.issue_bed", "gci.reports.collapse",
+                "gci.score.report"} <= names
 
 
 def test_cli_events_matches_jax(inputs, tmp_path, capsys):
     d_ref, d_got = str(tmp_path / "ref"), str(tmp_path / "got")
     jax_run_gci(hifi=[inputs["hifi"]], nano=[inputs["nano"]], reference=inputs["ref"],
                 directory=d_ref, prefix="E", depth_backend="events")
+    get_metrics().reset()  # the registry is the process's: earlier tests may have traced
     cli.main(["-r", inputs["ref"], "--hifi", inputs["hifi"], "--nano", inputs["nano"],
               "-d", d_got, "-o", "E", "--device", "events", "--profile"])
     stdout = capsys.readouterr().out
     assert "GCI finished!!!" in stdout and "=== stage metrics ===" in stdout
     assert '"stage": "HiFi:depth_accumulate"' in stdout
+    # after the stage lines, one line per span (``--profile`` turns them on)
+    report = stdout.split("=== stage metrics ===")[1].strip().splitlines()
+    rows = [json.loads(line) for line in report if line.startswith("{")]
+    n_stages = sum("stage" in r for r in rows)
+    assert n_stages and all("stage" in r for r in rows[:n_stages])
+    spans = {r["span"]: r for r in rows[n_stages:]}
+    assert len(spans) == len(rows) - n_stages
+    assert spans["reports.issue_bed"]["calls"] == 3 and spans["score.report"]["calls"] == 1
+    assert spans["merge.max"]["calls"] >= 1 and spans["mask.gaps"]["calls"] == 3
+    assert all(0 <= r["self_seconds"] <= r["seconds"] for r in spans.values())
+    assert not any(r["stage"].startswith("issue_bed") for r in rows[:n_stages])
     _diff_outputs(
         d_ref, d_got,
         ["E_hifi.depth.gz", "E_nano.depth.gz", "E_two_type.depth.gz",
