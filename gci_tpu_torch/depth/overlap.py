@@ -307,6 +307,7 @@ class SweepAccumulator(_Folding):
         self._carry = 0    # depth at the last slot before the frontier
         self._max_seen_start = -1
         self._unsorted = False
+        self._fixed_up = False  # a fixup may leave adjacent runs of one depth
 
     # ------------------------------------------------------------- internals
     def _bounds(self, c: int) -> tuple[int, int]:
@@ -387,6 +388,7 @@ class SweepAccumulator(_Folding):
         shift would otherwise carry into it.  Prevailing values at both
         endpoints are resolved before any event list is modified.
         """
+        self._fixed_up = True
         val_at_a = self._value_at(a)
         val_at_b = self._value_at(b)  # original value where the range ends
         c0 = a // self.chunk_slots
@@ -472,12 +474,18 @@ class SweepAccumulator(_Folding):
                 self._finalize_through(batch_min)
 
     def finish(self):
-        """Finalize the tail and assemble {target: DepthEvents}."""
+        """Finalize the tail and assemble {target: DepthEvents}.  After a
+        fixup, adjacent runs of one depth (within a chunk or across a
+        border) merge first, as ``events_from_runs`` expects."""
         while self.frontier < self.n_chunks:
             self._finalize_one()
-        return events_from_runs(
-            self.layout, [self._chunk_events[c] for c in sorted(self._chunk_events)]
-        )
+        runs = [self._chunk_events[c] for c in sorted(self._chunk_events)]
+        if self._fixed_up and runs:
+            idx = np.concatenate([r[0] for r in runs])
+            vals = np.concatenate([r[1] for r in runs])
+            keep = np.concatenate([[True], vals[1:] != vals[:-1]])
+            runs = [(idx[keep], vals[keep])]
+        return events_from_runs(self.layout, runs)
 
 
 def feed_bam(

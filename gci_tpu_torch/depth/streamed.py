@@ -40,7 +40,6 @@ import numpy as np
 import torch
 
 from gci_tpu_torch.depth.accum import GenomeLayout, clamp_read_intervals
-from gci_tpu_torch.depth.base import events_from_change_indices
 from gci_tpu_torch.depth.device import scatter_events
 from gci_tpu_torch.depth.scan import capacity_for, compact_runs, depth_scan
 from gci_tpu_torch.utils.metrics import count, span
@@ -253,16 +252,43 @@ def chunk_runs(depth: torch.Tensor, a: int, carry: int, rows: int | None = None)
 
 
 def events_from_runs(layout: GenomeLayout, runs):
-    """{target: DepthEvents} from the chunks' ``chunk_runs`` in genome order."""
+    """{target: DepthEvents} from the chunks' ``chunk_runs`` in genome order.
+
+    The concatenated runs must be what ``chunk_runs`` makes of a genome:
+    int64 slots strictly increasing, the first at slot 0, and adjacent
+    depths different (each chunk's slot 0 is compared with its carry).
+    A target's events are then the slice of the runs inside it, shifted to
+    its start, with a boundary put at slot 0 where none falls there, valued
+    by the run that holds the target's start: already the canonical form,
+    so nothing is merged.  The events may hold views of the runs' arrays.
+    The boundaries read back count in ``streamed.boundaries``.
+    """
+    from gci_tpu_torch.depth.eventspace import DepthEvents
+
     runs = [r for r in runs if r[0].shape[0]]
-    idx = np.concatenate([r[0] for r in runs]) if runs else np.zeros(1, np.int64)
-    vals = np.concatenate([r[1] for r in runs]) if runs else np.zeros(1, np.int64)
-
-    def gather(query: np.ndarray) -> np.ndarray:
-        # the value of the run holding each queried slot (a target start
-        # may fall inside a run)
-        pos = np.searchsorted(idx, query, side="right") - 1
-        return vals[np.clip(pos, 0, None)]
-
-    return events_from_change_indices(layout, idx, gather)
+    count("streamed.boundaries", sum(r[0].shape[0] for r in runs))
+    if runs:
+        idx = np.concatenate([r[0] for r in runs])
+        vals = np.concatenate([r[1] for r in runs])
+    else:  # a genome of no slots
+        idx = vals = np.zeros(1, np.int64)
+    starts = layout.offsets[:-1]
+    lo = np.searchsorted(idx, starts)
+    hi = np.searchsorted(idx, starts + layout.lengths)
+    # the run holding each start (a zero-length target may start on a boundary)
+    holding = vals[np.searchsorted(idx, starts, side="right") - 1]
+    out = {}
+    for k, name in enumerate(layout.names):
+        o, a, b = int(starts[k]), int(lo[k]), int(hi[k])
+        if a < b and idx[a] == o:
+            bounds, values = idx[a:b] - o, vals[a:b]
+        else:
+            bounds = np.empty(b - a + 1, np.int64)
+            bounds[0] = 0
+            np.subtract(idx[a:b], o, out=bounds[1:])
+            values = np.empty(b - a + 1, np.int64)
+            values[0] = holding[k]
+            values[1:] = vals[a:b]
+        out[name] = DepthEvents(bounds, values, int(layout.lengths[k]))
+    return out
 

@@ -20,7 +20,9 @@ from gci_tpu.io.names import hash_names as jax_hash_names
 from gci_tpu.io.names import keys_view as jax_keys_view
 from gci_tpu_torch import kernels
 from gci_tpu_torch.depth import accum, overlap, streamed
+from gci_tpu_torch.depth.base import events_from_change_indices
 from gci_tpu_torch.depth.device import scatter_events_into
+from gci_tpu_torch.depth.eventspace import DepthEvents
 from gci_tpu_torch.depth.accum import (
     GenomeLayout,
     accumulate_depth,
@@ -345,6 +347,173 @@ def test_delta_readout_checks_the_delta_and_consumes_it():
     np.testing.assert_array_equal(ev["t"].materialize(),
                                   np.r_[np.zeros(10), np.ones(60), np.zeros(29)])
     assert delta[25].item() == delta[50].item() == 1 and delta[75].item() == 0
+
+
+# ---------------------------------------------------------------------------
+# events_from_runs: each target a slice of the chunks' runs
+# ---------------------------------------------------------------------------
+
+def _events_by_gather(layout, runs):
+    """The construction ``events_from_runs`` replaced: every target's
+    boundaries, its start forced, gathered genome-wide by binary search into
+    the runs, then merged by ``_dedup`` (``events_from_change_indices``)."""
+    runs = [r for r in runs if r[0].shape[0]]
+    idx = np.concatenate([r[0] for r in runs]) if runs else np.zeros(1, np.int64)
+    vals = np.concatenate([r[1] for r in runs]) if runs else np.zeros(1, np.int64)
+
+    def gather(query):
+        return vals[np.clip(np.searchsorted(idx, query, side="right") - 1, 0, None)]
+
+    return events_from_change_indices(layout, idx, gather)
+
+
+def _assert_runs_invariant(runs):
+    """What ``events_from_runs`` relies on: int64 slots strictly increasing
+    from slot 0, and adjacent depths different."""
+    runs = [r for r in runs if r[0].shape[0]]
+    idx = np.concatenate([r[0] for r in runs])
+    vals = np.concatenate([r[1] for r in runs])
+    assert idx.dtype == vals.dtype == np.int64
+    assert idx[0] == 0 and np.all(np.diff(idx) > 0)
+    assert np.all(vals[1:] != vals[:-1])
+
+
+def _runs_layout(seed, chunk_slots):
+    """1-5 targets; the second starts on a chunk border, the rest random,
+    zero-length and one-slot targets among them; reads over every target,
+    at flank 0 (some read starting on its target's first slot) or 15."""
+    rng = np.random.default_rng([seed, chunk_slots])
+    lens = [chunk_slots - 1] + [int(rng.choice([0, 1, rng.integers(2, 1500)]))
+                                for _ in range(rng.integers(0, 5))]
+    targets = {f"t{k}": L for k, L in enumerate(lens)}
+    flank = int(rng.choice([0, 15]))
+    n = 300
+    L = np.array(lens)
+    tid = rng.integers(0, len(lens), n)
+    start = (rng.random(n) * np.maximum(L[tid] - 5, 1)).astype(np.int64)
+    start[:len(lens)] = 0  # a read at every target's first slot
+    tid[:len(lens)] = np.arange(len(lens))
+    end = start + rng.integers(1, 900, n)
+    return targets, flank, tid.astype(np.int64), start, end
+
+
+def _run_caller(caller, layout, flank, tid, start, end, chunk_slots):
+    if caller == "reads":
+        return streamed.events_from_reads_streamed(layout, tid, start, end, flank,
+                                                   chunk_slots, device=CPU)
+    if caller == "delta":
+        gs, ge = streamed._sorted_events(layout, tid, start, end, flank)
+        delta = torch.zeros(layout.total_slots, dtype=torch.int32)
+        scatter_events_into(delta, [(gs, 1), (ge, -1)])
+        return streamed.events_from_delta2d_streamed(layout, delta, chunk_slots,
+                                                     rows=2 * gs.shape[0])
+    # the sweep: distinct names in global start order, 3 BAM chunks
+    order = np.argsort(layout.offsets[tid] + start, kind="stable")
+    tid, start, end = tid[order], start[order], end[order]
+    keys = hash_names([f"r{k}".encode() for k in range(tid.shape[0])])
+    acc = overlap.SweepAccumulator(layout, flank, chunk_slots, device=CPU)
+    for lo, hi in ((0, 100), (100, 200), (200, tid.shape[0])):
+        acc.add_chunk(keys_view(keys[lo:hi]), tid[lo:hi], start[lo:hi], end[lo:hi])
+    return acc.finish()
+
+
+@pytest.fixture
+def runs_spy(monkeypatch):
+    """The runs each call of ``events_from_runs`` got (``overlap`` holds its
+    own reference to it)."""
+    seen = []
+    real = streamed.events_from_runs
+
+    def spy(layout, runs):
+        runs = list(runs)
+        seen.append(runs)
+        return real(layout, runs)
+
+    monkeypatch.setattr(streamed, "events_from_runs", spy)
+    monkeypatch.setattr(overlap, "events_from_runs", spy)
+    return seen
+
+
+@pytest.mark.parametrize("caller", ["reads", "delta", "sweep"])
+@pytest.mark.parametrize("chunk_slots", [1, 2, 7, 1000, 2**20])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_events_from_runs_slices_the_runs(runs_spy, seed, chunk_slots, caller):
+    """Through each caller: the runs it hands over keep the invariant, and
+    the events equal, array by array, those of the genome-wide gather, and
+    the numpy depth oracle's canonical runs per target (a zero-length
+    target holds the depth at its slot)."""
+    targets, flank, tid, start, end = _runs_layout(seed, chunk_slots)
+    layout = GenomeLayout.from_targets(targets)
+    assert layout.offsets[1] == chunk_slots  # the second target starts on a border
+    got = _run_caller(caller, layout, flank, tid, start, end, chunk_slots)
+    (runs,) = runs_spy
+    _assert_runs_invariant(runs)
+    want = _events_by_gather(layout, runs)
+    flat = accumulate_depth_numpy(layout, tid, start, end, flank)
+    assert list(got) == list(targets)
+    for k, t in enumerate(targets):
+        g, w = got[t], want[t]
+        for a, b in ((g.boundaries, w.boundaries), (g.values, w.values)):
+            assert a.dtype == b.dtype == np.int64, t
+            np.testing.assert_array_equal(a, b, err_msg=t)
+        assert g.length == w.length == targets[t], t
+        o, L = int(layout.offsets[k]), targets[t]
+        assert g.values[0] == flat[o], t
+        if L:
+            canon = DepthEvents.from_array(flat[o:o + L])
+            np.testing.assert_array_equal(g.boundaries, canon.boundaries, err_msg=t)
+            np.testing.assert_array_equal(g.values, canon.values, err_msg=t)
+
+
+def test_events_from_runs_on_hand_made_runs():
+    """Runs that keep the invariant but no reads could make, split over
+    chunks with an empty one among them: target a starts on a boundary, z
+    (zero-length) on one too and takes the run that starts there, b (one
+    slot) inside a run, c inside one and past the last boundary."""
+    layout = GenomeLayout.from_targets({"a": 3, "z": 0, "b": 1, "c": 4})  # 0, 4, 5, 7
+    runs = [(np.array([0, 2], np.int64), np.array([1, 2], np.int64)),
+            (np.empty(0, np.int64), np.empty(0, np.int64)),
+            (np.array([4, 6, 8], np.int64), np.array([3, 4, 5], np.int64))]
+    got = streamed.events_from_runs(layout, runs)
+    want = _events_by_gather(layout, runs)
+    expect = {"a": ([0, 2], [1, 2], 3), "z": ([0], [3], 0), "b": ([0], [3], 1),
+              "c": ([0, 1], [4, 5], 4)}
+    assert list(got) == list(expect)
+    for t, (b, v, L) in expect.items():
+        for ev in (got[t], want[t]):
+            assert ev.boundaries.tolist() == b and ev.values.tolist() == v, t
+            assert ev.length == L, t
+
+
+def test_sweep_merges_runs_a_fixup_made_equal(runs_spy):
+    """A retraction behind the sweep's frontier shifts finalized runs into
+    their neighbours' depth: read b, [515, 1986) after its flanks, is
+    retracted once chunks 0 and 1 are final, which leaves the runs at 515
+    and 1986 equal to those before them.  ``finish`` merges them before
+    ``events_from_runs``; the events equal the gather over the unmerged
+    runs and the survivors' oracle."""
+    targets = {"c": 39_999}
+    layout = GenomeLayout.from_targets(targets)
+    rows = [[("a", 100, 1000), ("b", 500, 2000)], [("x", 9000, 9800)], [("b", 9500, 10000)]]
+    acc = overlap.SweepAccumulator(layout, 15, 4096, device=CPU)
+    for batch in rows:
+        keys = hash_names([r[0].encode() for r in batch])
+        acc.add_chunk(keys_view(keys), np.zeros(len(batch), np.int32),
+                      np.array([r[1] for r in batch], np.int64),
+                      np.array([r[2] for r in batch], np.int64))
+    assert acc.frontier == 2 and acc.rows_retracted == 1
+    idx, vals = acc._chunk_events[0]
+    assert idx.tolist() == [0, 115, 515, 986, 1986] and vals.tolist() == [0, 1, 1, 0, 0]
+    got = acc.finish()
+    unmerged = [acc._chunk_events[c] for c in sorted(acc._chunk_events)]
+    (runs,) = runs_spy
+    _assert_runs_invariant(runs)
+    want = _events_by_gather(layout, unmerged)
+    np.testing.assert_array_equal(got["c"].boundaries, want["c"].boundaries)
+    np.testing.assert_array_equal(got["c"].values, want["c"].values)
+    flat = accumulate_depth_numpy(layout, np.zeros(3, np.int64),
+                                  np.array([100, 9000, 9500]), np.array([1000, 9800, 10000]), 15)
+    np.testing.assert_array_equal(got["c"].materialize(), flat[:39_999])
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ from gci_tpu_torch.depth.accum import (
     accumulate_depth_numpy,
     clamp_read_intervals,
 )
-from gci_tpu_torch.depth.device import build_scan_valid
+from gci_tpu_torch.depth.device import build_scan_valid, scatter_events_into
 from gci_tpu_torch.depth.fused import DeviceDepth
 from gci_tpu_torch.depth.overlap import DeltaAccumulator
 from gci_tpu_torch.filters.cascade import dedup_last_wins
@@ -199,7 +199,9 @@ def test_streamed_spans_under_the_profiler(registry, tmp_path, chunk_slots):
         "streamed.scatter": n_chunks, "streamed.compact": n_chunks,
         "streamed.readback": n_chunks}
     _check_nesting(totals, "streamed.build", STREAMED_CHILDREN)
-    assert registry.counter_totals() == {}  # nothing is counted on the CPU
+    # on the CPU no copy is counted, only the boundaries
+    flat = accumulate_depth_numpy(layout, tid, start, end, 15)
+    assert registry.counter_totals() == {"streamed.boundaries": _boundaries(flat)}
     ranges = _ranges(prof, tmp_path)
     by_name = {}
     for r in ranges:
@@ -272,6 +274,44 @@ def test_fused_spans(on, monkeypatch, limit):
     _check_nesting(totals, "fused.build", FUSED_CHILDREN)
 
 
+@pytest.mark.parametrize("caller", ["reads", "delta", "sweep"])
+def test_boundaries_counter_is_the_runs_read_back(on, monkeypatch, caller):
+    """``streamed.boundaries``, once per ``events_from_runs``: the run
+    boundaries the chunks read back (the sum over ``chunk_runs``), for each
+    of its three callers on the CPU, 4096-slot chunks."""
+    from gci_tpu_torch.depth import overlap
+
+    layout = GenomeLayout.from_targets(TARGETS)
+    tid, start, end = _reads()
+    read_back = []
+    real = streamed.chunk_runs
+
+    def spy(*args):
+        got = real(*args)
+        read_back.append(got[0].shape[0])
+        return got
+
+    monkeypatch.setattr(streamed, "chunk_runs", spy)
+    monkeypatch.setattr(overlap, "chunk_runs", spy)
+    if caller == "reads":
+        streamed.events_from_reads_streamed(layout, tid, start, end, 15, 4096, device=CPU)
+    elif caller == "delta":
+        gs, ge = streamed._sorted_events(layout, tid, start, end, 15)
+        delta = torch.zeros(layout.total_slots, dtype=torch.int32)
+        scatter_events_into(delta, [(gs, 1), (ge, -1)])
+        streamed.events_from_delta2d_streamed(layout, delta, 4096, rows=2 * gs.shape[0])
+    else:
+        order = np.argsort(layout.offsets[tid] + start, kind="stable")
+        keys = hash_names([f"r{k}".encode() for k in range(tid.shape[0])])
+        acc = overlap.SweepAccumulator(layout, 15, 4096, device=CPU)
+        acc.add_chunk(keys_view(keys), tid[order], start[order], end[order])
+        acc.finish()
+    flat = accumulate_depth_numpy(layout, tid, start, end, 15)
+    assert len(read_back) == -(-layout.total_slots // 4096)
+    assert on.counter_totals() == {"streamed.boundaries": sum(read_back)}
+    assert sum(read_back) == _boundaries(flat)
+
+
 def test_overlap_fold_span(on):
     """``overlap.fold`` once per chunk folded into an accumulator."""
     layout = GenomeLayout.from_targets(TARGETS)
@@ -325,7 +365,8 @@ def test_copy_counters_on_cuda_streamed(on, cuda_device, chunk_slots):
                                         device=cuda_device)
     torch.cuda.synchronize()
     assert on.counter_totals() == {"copies.h2d_bytes": 8 * (2 * n_live + n_chunks),
-                                   "copies.d2h_bytes": 16 * _boundaries(flat)}
+                                   "copies.d2h_bytes": 16 * _boundaries(flat),
+                                   "streamed.boundaries": _boundaries(flat)}
 
 
 @pytest.mark.cuda
