@@ -1116,6 +1116,81 @@ GCI_API void gci_seg_sum_f64(const double* v, const int64_t* starts,
   }
 }
 
+// The streamed depth's events: each read clamped as
+// ``accum.clamp_read_intervals`` does (s = start + flank, e = end - flank + 1,
+// a negative e wraps by +L, both clipped to [0, L]), the dead ones (e <= s)
+// dropped, and the live ones' global start and stop slots (offsets[t] + s,
+// offsets[t] + e) counting-sorted by chunk.  Pass 1 counts each chunk's
+// events into s_at[c + 1] / e_at[c + 1] and turns the counts into offsets;
+// pass 2 writes each event as a chunk-local int32 at its chunk's cursor, so
+// the order inside a chunk is read order.  Global slots stay int64 here.
+// Returns the live reads, or -1 for a target id outside [0, n_targets).
+template <typename Tid, bool Pow2>
+static int64_t partition_read_events(
+    const Tid* tid, const int64_t* start, const int64_t* end, int64_t n,
+    const int64_t* lengths, const int64_t* offsets, int64_t n_targets,
+    int64_t flank, int64_t chunk_slots, int64_t n_chunks, int64_t* s_at,
+    int64_t* e_at, int32_t* starts, int32_t* stops) {
+  const int shift = Pow2 ? __builtin_ctzll((unsigned long long)chunk_slots) : 0;
+  auto chunk_of = [&](int64_t g) { return Pow2 ? g >> shift : g / chunk_slots; };
+  // the global slots of read i, false for a dead read
+  auto clamp = [&](int64_t i, int64_t& gs, int64_t& ge) {
+    const int64_t t = (int64_t)tid[i];
+    const int64_t L = lengths[t];
+    int64_t s = start[i] + flank;
+    int64_t e = end[i] - flank + 1;
+    if (e < 0) e += L;
+    e = std::min(std::max(e, (int64_t)0), L);
+    s = std::min(std::max(s, (int64_t)0), L);
+    gs = offsets[t] + s;
+    ge = offsets[t] + e;
+    return e > s;
+  };
+  std::fill(s_at, s_at + n_chunks + 1, 0);
+  std::fill(e_at, e_at + n_chunks + 1, 0);
+  int64_t live = 0;
+  for (int64_t i = 0; i < n; i++) {
+    if ((int64_t)tid[i] < 0 || (int64_t)tid[i] >= n_targets) return -1;
+    int64_t gs, ge;
+    if (!clamp(i, gs, ge)) continue;
+    s_at[chunk_of(gs) + 1]++;
+    e_at[chunk_of(ge) + 1]++;
+    live++;
+  }
+  for (int64_t c = 0; c < n_chunks; c++) {
+    s_at[c + 1] += s_at[c];
+    e_at[c + 1] += e_at[c];
+  }
+  std::vector<int64_t> s_next(s_at, s_at + n_chunks), e_next(e_at, e_at + n_chunks);
+  for (int64_t i = 0; i < n; i++) {
+    int64_t gs, ge;
+    if (!clamp(i, gs, ge)) continue;
+    const int64_t cs = chunk_of(gs), ce = chunk_of(ge);
+    starts[s_next[cs]++] = (int32_t)(gs - cs * chunk_slots);
+    stops[e_next[ce]++] = (int32_t)(ge - ce * chunk_slots);
+  }
+  return live;
+}
+
+// ``tid`` is int32 (tid_bytes 4) or int64 (8); ``starts`` and ``stops`` hold
+// at least n entries each, ``s_at`` and ``e_at`` n_chunks + 1, and
+// ``n_chunks * chunk_slots`` must cover every target's last slot.
+GCI_API int64_t gci_partition_read_events(
+    const void* tid, int tid_bytes, const int64_t* start, const int64_t* end,
+    int64_t n, const int64_t* lengths, const int64_t* offsets,
+    int64_t n_targets, int64_t flank, int64_t chunk_slots, int64_t n_chunks,
+    int64_t* s_at, int64_t* e_at, int32_t* starts, int32_t* stops) {
+  const bool pow2 = (chunk_slots & (chunk_slots - 1)) == 0;
+#define GCI_PARTITION(T, P)                                                   \
+  partition_read_events<T, P>((const T*)tid, start, end, n, lengths, offsets, \
+                              n_targets, flank, chunk_slots, n_chunks, s_at,  \
+                              e_at, starts, stops)
+  if (tid_bytes == 4)
+    return pow2 ? GCI_PARTITION(int32_t, true) : GCI_PARTITION(int32_t, false);
+  return pow2 ? GCI_PARTITION(int64_t, true) : GCI_PARTITION(int64_t, false);
+#undef GCI_PARTITION
+}
+
 GCI_API void gci_bam_free(void* h) { delete (PackedBam*)h; }
 GCI_API const char* gci_bam_error(void* h) {
   auto* pb = (PackedBam*)h;

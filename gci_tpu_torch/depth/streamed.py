@@ -7,9 +7,9 @@ assembly (3.1 Gbp) is past the first limit and near the second on an 80 GB
 card.  This path scans the concatenated genome axis in chunks of
 ``CHUNK_SLOTS``:
 
-* the read events (start +1, stop -1) are clamped and sorted once on the
-  host as int64 global slots, and each chunk's slice is found by binary
-  search;
+* the read events (start +1, stop -1) are clamped and partitioned by
+  chunk once on the host (one counting sort in the host library), each
+  chunk's as chunk-local int32 slots;
 * a chunk's carry, the depth just before it, is exact:
   ``#starts < a - #stops < a``;
 * per chunk, one ``index_add_`` scatters its event slice at chunk-local
@@ -42,6 +42,7 @@ import torch
 from gci_tpu_torch.depth.accum import GenomeLayout, clamp_read_intervals
 from gci_tpu_torch.depth.device import scatter_events
 from gci_tpu_torch.depth.scan import capacity_for, compact_runs, depth_scan
+from gci_tpu_torch.native import HostCodecError, partition_read_events_native
 from gci_tpu_torch.utils.metrics import count, span
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
@@ -56,28 +57,54 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 CHUNK_SLOTS = 1 << 28
 
 
-def _sorted_events(layout, target_id, start, end, flank_len):
-    """Sorted int64 global start and stop slots of the live reads."""
-    s, e = clamp_read_intervals(layout, target_id, start, end, flank_len)
-    live = e > s
-    base = layout.offsets[target_id]
-    gs = np.sort((base + s)[live].astype(np.int64))
-    ge = np.sort((base + e)[live].astype(np.int64))
-    return gs, ge
+def _sorted_events(layout, target_id, start, end, flank_len, chunk_slots):
+    """The live reads' events sorted by chunk, by a counting sort on the
+    chunk number: ``(bounds, starts, stops, s_at, e_at)``.
 
-
-def _chunk_plan(total: int, gs: np.ndarray, ge: np.ndarray, chunk_slots: int):
-    """(n_chunks, bounds, gs_lo, gs_hi, ge_lo, ge_hi): chunk c covers global
-    slots ``[bounds[c], bounds[c + 1])`` and its events are
-    ``gs[gs_lo[c]:gs_hi[c]]`` and ``ge[ge_lo[c]:ge_hi[c]]``.  Every bound is
-    int64; the chunk size must fit int32 indices."""
+    Chunk c covers global slots ``[bounds[c], bounds[c + 1])`` (int64; the
+    chunk size must fit int32 indices); its events are
+    ``starts[s_at[c]:s_at[c + 1]]`` and ``stops[e_at[c]:e_at[c + 1]]``, int32
+    slots local to the chunk, in read order inside it (the scatter's adds
+    commute, so no order is needed there).  ``s_at[c] - e_at[c]`` is the
+    depth just before the chunk.  One pass of the host library
+    (``native.partition_read_events_native``) clamps, drops the dead reads
+    and partitions; where the library does not load, its numpy twin
+    ``_partition_numpy`` gives the same arrays.  The events partitioned
+    count in ``streamed.events_native`` or ``streamed.events_numpy``.
+    """
     if not 0 < chunk_slots <= _INT32_MAX:
         raise ValueError(f"chunk of {chunk_slots} slots: expected 1 to {_INT32_MAX}")
+    total = layout.total_slots
     n_chunks = -(-total // chunk_slots)
     bounds = np.minimum(np.arange(n_chunks + 1, dtype=np.int64) * chunk_slots, total)
-    gs_at = np.searchsorted(gs, bounds)
-    ge_at = np.searchsorted(ge, bounds)
-    return n_chunks, bounds, gs_at[:-1], gs_at[1:], ge_at[:-1], ge_at[1:]
+    try:
+        parts = partition_read_events_native(
+            target_id, start, end, layout.lengths, layout.offsets, flank_len,
+            chunk_slots, n_chunks)
+        counter = "streamed.events_native"
+    except HostCodecError:
+        parts = _partition_numpy(layout, target_id, start, end, flank_len,
+                                 chunk_slots, n_chunks)
+        counter = "streamed.events_numpy"
+    count(counter, parts[0].shape[0] + parts[1].shape[0])
+    return (bounds, *parts)
+
+
+def _partition_numpy(layout, target_id, start, end, flank_len, chunk_slots, n_chunks):
+    """``partition_read_events_native`` in numpy: the clamp, then a stable
+    ``argsort`` of the chunk numbers and a gather, so the same order."""
+    s, e = clamp_read_intervals(layout, target_id, start, end, flank_len)
+    live = e > s
+    base = layout.offsets[target_id][live]
+    out, at = [], []
+    for slots in (base + s[live], base + e[live]):
+        chunk = slots // chunk_slots
+        order = np.argsort(chunk, kind="stable")
+        out.append((slots - chunk * chunk_slots)[order].astype(np.int32))
+        offsets = np.zeros(n_chunks + 1, np.int64)
+        np.cumsum(np.bincount(chunk, minlength=n_chunks), out=offsets[1:])
+        at.append(offsets)
+    return out[0], out[1], at[0], at[1]
 
 
 def _iter_depth_chunks(
@@ -95,25 +122,23 @@ def _iter_depth_chunks(
     events scattered into it.  A consumer drops ``depth`` before it asks for
     the next chunk, so one chunk lives at a time.
 
-    Spans: ``streamed.sort`` (the host sorts and the chunk plan), and per
-    chunk ``streamed.scatter`` (the scatter and the scan's launch), each
-    closed before the ``yield``."""
+    Spans: ``streamed.sort`` (``_sorted_events``: the clamp and the
+    partition by chunk), and per chunk ``streamed.scatter`` (the scatter
+    and the scan's launch), each closed before the ``yield``."""
     with span("streamed.sort"):
-        gs, ge = _sorted_events(layout, target_id, start, end, flank_len)
-        n_chunks, bounds, gs_lo, gs_hi, ge_lo, ge_hi = _chunk_plan(
-            layout.total_slots, gs, ge, chunk_slots
-        )
-    for c in range(n_chunks):
+        bounds, starts, stops, s_at, e_at = _sorted_events(
+            layout, target_id, start, end, flank_len, chunk_slots)
+    for c in range(bounds.shape[0] - 1):
         a, b = int(bounds[c]), int(bounds[c + 1])
-        carry = int(gs_lo[c] - ge_lo[c])
+        carry = int(s_at[c] - e_at[c])
         with span("streamed.scatter"):
             # the delta is a temporary: it dies once its scan is launched
             depth = depth_scan(scatter_events(b - a, device, [
-                (gs[gs_lo[c]:gs_hi[c]] - a, 1),
-                (ge[ge_lo[c]:ge_hi[c]] - a, -1),
+                (starts[s_at[c]:s_at[c + 1]], 1),
+                (stops[e_at[c]:e_at[c + 1]], -1),
                 ((0,), carry),
             ]))
-        yield a, b, depth, carry, int(gs_hi[c] - gs_lo[c] + ge_hi[c] - ge_lo[c])
+        yield a, b, depth, carry, int(s_at[c + 1] - s_at[c] + e_at[c + 1] - e_at[c])
         del depth  # before the next chunk's delta is allocated
 
 

@@ -174,6 +174,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gci_paf_target_name.argtypes = [c.c_void_p, c.c_int64]
     lib.gci_paf_copy_tids.argtypes = [c.c_void_p, i32p]
     lib.gci_seg_sum_f64.argtypes = [f64p, i64p, c.c_int64, c.c_int64, f64p]
+    lib.gci_partition_read_events.restype = c.c_int64
+    lib.gci_partition_read_events.argtypes = [
+        c.c_void_p, c.c_int, i64p, i64p, c.c_int64, i64p, i64p, c.c_int64,
+        c.c_int64, c.c_int64, c.c_int64, i64p, i64p, i32p, i32p,
+    ]
     lib.gci_fasta_scan.restype = c.c_void_p
     lib.gci_fasta_scan.argtypes = [c.c_char_p]
     lib.gci_fasta_free.argtypes = [c.c_void_p]
@@ -529,6 +534,53 @@ def seg_sum_f64_native(values: np.ndarray, starts: np.ndarray) -> np.ndarray:
         starts.shape[0], values.shape[0], _as_ptr(out, ctypes.c_double),
     )
     return out
+
+
+def partition_read_events_native(
+    target_id: np.ndarray, start: np.ndarray, end: np.ndarray,
+    lengths: np.ndarray, offsets: np.ndarray, flank_len: int,
+    chunk_slots: int, n_chunks: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """``(starts, stops, s_at, e_at)``: the live reads' start and stop slots,
+    clamped as ``depth.accum.clamp_read_intervals`` does, counting-sorted
+    by chunk of ``chunk_slots`` slots, in one C++ pass.
+
+    Chunk c's events are ``starts[s_at[c]:s_at[c + 1]]`` and
+    ``stops[e_at[c]:e_at[c + 1]]``, int32 slots local to the chunk, in read
+    order; ``s_at`` and ``e_at`` are int64, ``n_chunks + 1`` each.
+    ``target_id`` is read in place as int32 or int64 and ``start``/``end``
+    as int64; other dtypes are copied.  A target id outside the layout
+    raises IndexError.
+    """
+    lib = get_lib()
+    if target_id.dtype not in (np.int32, np.int64):
+        target_id = target_id.astype(np.int64)
+    target_id = np.ascontiguousarray(target_id)
+    start = np.ascontiguousarray(start, dtype=np.int64)
+    end = np.ascontiguousarray(end, dtype=np.int64)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int64)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    n = target_id.shape[0]
+    if not start.shape[0] == end.shape[0] == n:
+        raise ValueError(f"reads of {n}, {start.shape[0]} and {end.shape[0]} entries")
+    if chunk_slots < 1 or n_chunks * chunk_slots < offsets[-1]:
+        raise ValueError(f"{n_chunks} chunks of {chunk_slots} slots: do not cover "
+                         f"the layout's {int(offsets[-1])}")
+    # pages past the live reads' events are never touched
+    starts = np.empty(n, np.int32)
+    stops = np.empty(n, np.int32)
+    s_at = np.empty(n_chunks + 1, np.int64)
+    e_at = np.empty(n_chunks + 1, np.int64)
+    live = lib.gci_partition_read_events(
+        target_id.ctypes.data, target_id.itemsize, _as_ptr(start, ctypes.c_int64),
+        _as_ptr(end, ctypes.c_int64), n, _as_ptr(lengths, ctypes.c_int64),
+        _as_ptr(offsets, ctypes.c_int64), lengths.shape[0], flank_len, chunk_slots,
+        n_chunks, _as_ptr(s_at, ctypes.c_int64), _as_ptr(e_at, ctypes.c_int64),
+        _as_ptr(starts, ctypes.c_int32), _as_ptr(stops, ctypes.c_int32),
+    )
+    if live < 0:
+        raise IndexError(f"a target id outside [0, {lengths.shape[0]})")
+    return starts[:live], stops[:live], s_at, e_at
 
 
 class NativeBam:

@@ -18,7 +18,7 @@ from gci_tpu.depth.overlap import DeltaAccumulator as JaxDeltaAccumulator
 from gci_tpu.filters.cascade import dedup_last_wins as jax_dedup
 from gci_tpu.io.names import hash_names as jax_hash_names
 from gci_tpu.io.names import keys_view as jax_keys_view
-from gci_tpu_torch import kernels
+from gci_tpu_torch import kernels, native
 from gci_tpu_torch.depth import accum, overlap, streamed
 from gci_tpu_torch.depth.base import events_from_change_indices
 from gci_tpu_torch.depth.device import scatter_events_into
@@ -27,11 +27,13 @@ from gci_tpu_torch.depth.accum import (
     GenomeLayout,
     accumulate_depth,
     accumulate_depth_numpy,
+    clamp_read_intervals,
     depth_dict_from_flat,
 )
 from gci_tpu_torch.filters.cascade import dedup_last_wins
 from gci_tpu_torch.intervals.collapse import collapse_depth_runs
 from gci_tpu_torch.io.names import hash_names, keys_view
+from gci_tpu_torch.utils.metrics import get_metrics
 
 TARGETS = {"a": 9000, "b": 7000, "c": 150}
 CPU = torch.device("cpu")
@@ -120,16 +122,135 @@ def test_runs_cross_chunk_borders_and_empty_chunks(chunk_slots):
 
 
 def test_chunks_without_events_are_planned():
-    """The plan of the reads above at 1000-slot chunks: chunks 3 and 4 hold
-    no event, and the carries are the depths before 1000, 2000 and 3000."""
+    """The partition of the reads above at 1000-slot chunks: chunks 3 and 4
+    hold no event, and the carries are the depths before 1000, 2000 and
+    3000."""
     layout = GenomeLayout.from_targets(BORDER_TARGETS)
-    gs, ge = streamed._sorted_events(layout, *BORDER_READS, 15)
-    n, bounds, gs_lo, gs_hi, ge_lo, ge_hi = streamed._chunk_plan(
-        layout.total_slots, gs, ge, 1000)
+    bounds, _, _, s_at, e_at = streamed._sorted_events(layout, *BORDER_READS, 15, 1000)
+    n = bounds.shape[0] - 1
     assert n == 7 and bounds[-1] == layout.total_slots == 6052
-    empty = [c for c in range(n) if gs_lo[c] == gs_hi[c] and ge_lo[c] == ge_hi[c]]
+    empty = [c for c in range(n) if s_at[c] == s_at[c + 1] and e_at[c] == e_at[c + 1]]
     assert empty == [3, 4]
-    assert list((gs_lo - ge_lo)[1:4]) == [2, 2, 0]
+    assert list((s_at - e_at)[1:4]) == [2, 2, 0]
+
+
+def _global_events(layout, tid, start, end, flank):
+    """Sorted int64 global start and stop slots of the live reads."""
+    s, e = clamp_read_intervals(layout, tid, start, end, flank)
+    live = e > s
+    base = layout.offsets[tid][live]
+    return np.sort(base + s[live]), np.sort(base + e[live])
+
+
+@pytest.fixture
+def counters(monkeypatch):
+    """The port's registry, on and empty; its counters after the test's
+    calls are ``counters()``."""
+    m = get_metrics()
+    m.reset()
+    monkeypatch.setattr(m, "enabled", True)
+    yield m.counter_totals
+    m.reset()
+
+
+def _assert_partition(layout, tid, start, end, flank, chunk, counters, path="native"):
+    """``_sorted_events`` took ``path`` and equals the numpy twin array for
+    array; each chunk's events, shifted to it, are the live reads' global
+    slots, and each carry is the depth before the chunk."""
+    got = streamed._sorted_events(layout, tid, start, end, flank, chunk)
+    bounds, starts, stops, s_at, e_at = got
+    n_chunks = bounds.shape[0] - 1
+    assert n_chunks == -(-layout.total_slots // chunk)
+    assert bounds.dtype == s_at.dtype == e_at.dtype == np.int64
+    assert starts.dtype == stops.dtype == np.int32
+    want = streamed._partition_numpy(layout, tid, start, end, flank, chunk, n_chunks)
+    for g, w, what in zip(got[1:], want, ("starts", "stops", "s_at", "e_at")):
+        assert g.dtype == w.dtype, what
+        np.testing.assert_array_equal(g, w, err_msg=what)
+    gs, ge = _global_events(layout, tid, start, end, flank)
+    assert counters() == {f"streamed.events_{path}": 2 * gs.shape[0]}
+    for slots, at, want_slots in ((starts, s_at, gs), (stops, e_at, ge)):
+        assert at[0] == 0 and at[-1] == slots.shape[0] == want_slots.shape[0]
+        back = [slots[at[c]:at[c + 1]].astype(np.int64) + bounds[c] for c in range(n_chunks)]
+        for c, x in enumerate(back):
+            assert x.size == 0 or (x.min() >= bounds[c] and x.max() < bounds[c + 1])
+        np.testing.assert_array_equal(np.sort(np.concatenate(back)), want_slots)
+    carries = np.searchsorted(gs, bounds[:-1]) - np.searchsorted(ge, bounds[:-1])
+    np.testing.assert_array_equal(s_at[:-1] - e_at[:-1], carries)
+    return got
+
+
+PARTITION_TARGETS = {"a": 9000, "z": 0, "b": 7000, "c": 150}
+
+
+def _partition_reads(rng, n=3000, targets=PARTITION_TARGETS):
+    """Reads over every target, the zero-length one too: starts before 0
+    and past the end, ends before the starts (dead reads), ends that wrap
+    negative (below ``flank - 1``) and ends below ``-L``."""
+    lens = np.array(list(targets.values()))
+    tid = rng.integers(0, len(lens), n)
+    start = (rng.random(n) * (lens[tid] + 60)).astype(np.int64) - 30
+    end = start + rng.integers(-200, 4000, n)
+    end[:40] = -rng.integers(1, 12_000, 40)
+    return tid, start, end
+
+
+@pytest.mark.parametrize("tid_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("flank", [0, 15])
+@pytest.mark.parametrize("chunk", [7, 1000, 4096, streamed.CHUNK_SLOTS, INT32_MAX])
+def test_partition_native_equals_numpy_twin(chunk, flank, tid_dtype, counters):
+    """The host library's clamp and counting sort by chunk equals the numpy
+    twin, array for array, on reads that wrap, die, or fall on an empty
+    target; ``target_id`` is read as int32 or int64."""
+    rng = np.random.default_rng([chunk, flank])
+    layout = GenomeLayout.from_targets(PARTITION_TARGETS)
+    tid, start, end = _partition_reads(rng)
+    s, e = clamp_read_intervals(layout, tid, start, end, flank)
+    assert (e <= s).sum() > 100 and ((end - flank + 1) < 0).sum() >= 40
+    _assert_partition(layout, tid.astype(tid_dtype), start, end, flank, chunk, counters)
+
+
+@pytest.mark.parametrize("chunk", [7, streamed.CHUNK_SLOTS])
+def test_partition_of_no_reads(chunk, counters):
+    layout = GenomeLayout.from_targets(PARTITION_TARGETS)
+    none = np.zeros(0, np.int64)
+    _, starts, stops, s_at, e_at = _assert_partition(layout, none, none, none, 15, chunk,
+                                                     counters)
+    assert starts.shape == stops.shape == (0,) and not s_at.any() and not e_at.any()
+
+
+def test_partition_refuses_target_ids_outside_the_layout(monkeypatch):
+    """A target id past the layout raises IndexError, in C++ and in numpy."""
+    layout = GenomeLayout.from_targets(PARTITION_TARGETS)
+    tid, start, end = np.array([0, 4]), np.array([10, 10]), np.array([500, 500])
+    with pytest.raises(IndexError):
+        streamed._sorted_events(layout, tid, start, end, 15, 1000)
+    monkeypatch.setattr(native, "get_lib", _no_host_library)
+    with pytest.raises(IndexError):
+        streamed._sorted_events(layout, tid, start, end, 15, 1000)
+
+
+def _no_host_library():
+    raise native.HostCodecError("the host codec did not build")
+
+
+@pytest.mark.parametrize("chunk", [7, 4096])
+def test_partition_falls_back_to_numpy_without_the_host_library(rng, monkeypatch, chunk,
+                                                                counters):
+    """Where the host library does not load, the numpy twin partitions (its
+    counter shows it) and the streamed depth's events are the same."""
+    layout = GenomeLayout.from_targets(PARTITION_TARGETS)
+    tid, start, end = _partition_reads(rng)
+    want = streamed.events_from_reads_streamed(layout, tid, start, end, 15, chunk, device=CPU)
+    assert "streamed.events_native" in counters()
+    get_metrics().reset()
+    monkeypatch.setattr(native, "get_lib", _no_host_library)
+    _assert_partition(layout, tid, start, end, 15, chunk, counters, path="numpy")
+    get_metrics().reset()
+    got = streamed.events_from_reads_streamed(layout, tid, start, end, 15, chunk, device=CPU)
+    assert "streamed.events_numpy" in counters()
+    assert "streamed.events_native" not in counters()
+    _assert_events_equal(got, want, PARTITION_TARGETS)
 
 
 def test_bed_parity_after_gap_masking(rng):
@@ -188,10 +309,11 @@ def test_accumulate_depth_needs_a_card_or_numpy(rng, monkeypatch):
         accumulate_depth_numpy(layout, tid, start, end, 15))
 
 
-def test_chunk_plan_above_int32_keeps_int64_positions(rng):
+def test_chunk_plan_above_int32_keeps_int64_positions(rng, counters):
     """A 3.1G-slot layout (24 targets, as a human T2T assembly): every
     chunk-local index fits int32, every global position is int64 and comes
-    back exactly from chunk start plus local index."""
+    back exactly from chunk start plus local index; the host library's
+    partition equals the numpy twin's there too."""
     targets = {f"chr{i}": 129_166_666 for i in range(24)}
     layout = GenomeLayout.from_targets(targets)
     total = layout.total_slots
@@ -200,31 +322,35 @@ def test_chunk_plan_above_int32_keeps_int64_positions(rng):
     tid = rng.integers(0, 24, n)
     start = (rng.random(n) * 129_000_000).astype(np.int64)
     end = start + rng.integers(40, 60_000, n)
-    gs, ge = streamed._sorted_events(layout, tid, start, end, 15)
+    gs, ge = _global_events(layout, tid, start, end, 15)
     assert gs.dtype == ge.dtype == np.int64 and gs.max() > INT32_MAX
     for chunk in (streamed.CHUNK_SLOTS, INT32_MAX):
-        n_chunks, bounds, gs_lo, gs_hi, ge_lo, ge_hi = streamed._chunk_plan(
-            total, gs, ge, chunk)
+        get_metrics().reset()
+        bounds, starts, stops, s_at, e_at = _assert_partition(
+            layout, tid, start, end, 15, chunk, counters)
+        n_chunks = bounds.shape[0] - 1
         assert bounds.dtype == np.int64 and bounds[0] == 0 and bounds[-1] == total
         assert n_chunks == -(-total // chunk)
         back_s, back_e = [], []
         for c in range(n_chunks):
             a = bounds[c]
-            for ev, lo, hi, back in ((gs, gs_lo, gs_hi, back_s), (ge, ge_lo, ge_hi, back_e)):
-                local = ev[lo[c]:hi[c]] - a
+            for ev, at, back in ((starts, s_at, back_s), (stops, e_at, back_e)):
+                local = ev[at[c]:at[c + 1]]
                 assert local.size == 0 or (local.min() >= 0 and local.max() < bounds[c + 1] - a)
                 assert local.size == 0 or local.max() <= INT32_MAX
-                back.append(local.astype(np.int32).astype(np.int64) + a)
+                back.append(local.astype(np.int64) + a)
             # the carry is the exact depth at a - 1
-            assert gs_lo[c] - ge_lo[c] == np.sum(gs < a) - np.sum(ge < a)
-        np.testing.assert_array_equal(np.concatenate(back_s), gs)
-        np.testing.assert_array_equal(np.concatenate(back_e), ge)
+            assert s_at[c] - e_at[c] == np.sum(gs < a) - np.sum(ge < a)
+        np.testing.assert_array_equal(np.sort(np.concatenate(back_s)), gs)
+        np.testing.assert_array_equal(np.sort(np.concatenate(back_e)), ge)
 
 
 @pytest.mark.parametrize("chunk", [0, -5, INT32_MAX + 1])
 def test_chunk_plan_refuses_chunks_past_int32(chunk):
+    none = np.zeros(0, np.int64)
     with pytest.raises(ValueError, match="chunk"):
-        streamed._chunk_plan(100, np.zeros(0, np.int64), np.zeros(0, np.int64), chunk)
+        streamed._sorted_events(GenomeLayout.from_targets({"a": 99}), none, none, none, 15,
+                                chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +429,7 @@ def test_delta_readout_chunk_borders(chunk_slots):
     events, with no relaunch."""
     layout = GenomeLayout.from_targets(BORDER_TARGETS)
     tid, start, end = BORDER_READS
-    gs, ge = streamed._sorted_events(layout, tid, start, end, 15)
+    gs, ge = _global_events(layout, tid, start, end, 15)
     assert {1000, 2086} <= set(ge.tolist())
     delta = torch.zeros(layout.total_slots, dtype=torch.int32)
     scatter_events_into(delta, [(gs, 1), (ge, -1)])
@@ -402,7 +528,7 @@ def _run_caller(caller, layout, flank, tid, start, end, chunk_slots):
         return streamed.events_from_reads_streamed(layout, tid, start, end, flank,
                                                    chunk_slots, device=CPU)
     if caller == "delta":
-        gs, ge = streamed._sorted_events(layout, tid, start, end, flank)
+        gs, ge = _global_events(layout, tid, start, end, flank)
         delta = torch.zeros(layout.total_slots, dtype=torch.int32)
         scatter_events_into(delta, [(gs, 1), (ge, -1)])
         return streamed.events_from_delta2d_streamed(layout, delta, chunk_slots,

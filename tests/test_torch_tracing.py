@@ -67,6 +67,14 @@ def _reads(n=400, seed=5, targets=TARGETS):
     return tid.astype(np.int64), start, end
 
 
+def _global_events(layout, tid, start, end, flank):
+    """int64 global start and stop slots of the live reads."""
+    s, e = clamp_read_intervals(layout, tid, start, end, flank)
+    live = e > s
+    base = layout.offsets[tid][live]
+    return base + s[live], base + e[live]
+
+
 def _ranges(prof, tmp_path) -> list:
     """The ``gci.`` ranges of a profiler's Chrome trace: [name, start, end]
     in microseconds, by start."""
@@ -199,9 +207,11 @@ def test_streamed_spans_under_the_profiler(registry, tmp_path, chunk_slots):
         "streamed.scatter": n_chunks, "streamed.compact": n_chunks,
         "streamed.readback": n_chunks}
     _check_nesting(totals, "streamed.build", STREAMED_CHILDREN)
-    # on the CPU no copy is counted, only the boundaries
+    # on the CPU no copy is counted, only the boundaries and the events
     flat = accumulate_depth_numpy(layout, tid, start, end, 15)
-    assert registry.counter_totals() == {"streamed.boundaries": _boundaries(flat)}
+    gs, ge = _global_events(layout, tid, start, end, 15)
+    assert registry.counter_totals() == {"streamed.boundaries": _boundaries(flat),
+                                         "streamed.events_native": gs.size + ge.size}
     ranges = _ranges(prof, tmp_path)
     by_name = {}
     for r in ranges:
@@ -293,10 +303,10 @@ def test_boundaries_counter_is_the_runs_read_back(on, monkeypatch, caller):
 
     monkeypatch.setattr(streamed, "chunk_runs", spy)
     monkeypatch.setattr(overlap, "chunk_runs", spy)
+    gs, ge = _global_events(layout, tid, start, end, 15)
     if caller == "reads":
         streamed.events_from_reads_streamed(layout, tid, start, end, 15, 4096, device=CPU)
     elif caller == "delta":
-        gs, ge = streamed._sorted_events(layout, tid, start, end, 15)
         delta = torch.zeros(layout.total_slots, dtype=torch.int32)
         scatter_events_into(delta, [(gs, 1), (ge, -1)])
         streamed.events_from_delta2d_streamed(layout, delta, 4096, rows=2 * gs.shape[0])
@@ -308,7 +318,9 @@ def test_boundaries_counter_is_the_runs_read_back(on, monkeypatch, caller):
         acc.finish()
     flat = accumulate_depth_numpy(layout, tid, start, end, 15)
     assert len(read_back) == -(-layout.total_slots // 4096)
-    assert on.counter_totals() == {"streamed.boundaries": sum(read_back)}
+    # the reads' caller also partitions their events
+    events = {"streamed.events_native": 2 * gs.size} if caller == "reads" else {}
+    assert on.counter_totals() == {"streamed.boundaries": sum(read_back), **events}
     assert sum(read_back) == _boundaries(flat)
 
 
@@ -366,7 +378,8 @@ def test_copy_counters_on_cuda_streamed(on, cuda_device, chunk_slots):
     torch.cuda.synchronize()
     assert on.counter_totals() == {"copies.h2d_bytes": 8 * (2 * n_live + n_chunks),
                                    "copies.d2h_bytes": 16 * _boundaries(flat),
-                                   "streamed.boundaries": _boundaries(flat)}
+                                   "streamed.boundaries": _boundaries(flat),
+                                   "streamed.events_native": 2 * n_live}
 
 
 @pytest.mark.cuda
