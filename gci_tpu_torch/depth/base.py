@@ -49,43 +49,37 @@ def gap_interval_events(layout, gaps):
     )
 
 
-def events_from_change_indices(layout, idx: np.ndarray, gather):
-    """Build per-target ``DepthEvents`` from global run-boundary indices.
+def events_from_boundaries(layout, idx: np.ndarray, vals: np.ndarray):
+    """{target: DepthEvents} from the whole genome's run form.
 
-    ``idx`` — sorted int64 indices into the concatenated genome axis where
-    the depth value changes; ``gather(all_idx) -> int64 values`` reads the
-    depth at those indices (backend-specific: a host lookup in values
-    already read back, or a device gather).  A boundary is forced at every target start so each
-    target's event list is self-contained.
+    ``idx`` and ``vals`` are int64 host arrays: the slots where the depth
+    changes, strictly increasing with ``idx[0] == 0``, and the depth of the
+    run each of them starts, neighbouring ``vals`` different.  A target's
+    events are then the slice of the boundaries inside it, shifted to its
+    start, with a boundary put at slot 0 where none falls there, valued by
+    the run that holds the target's start: already the canonical form, so
+    nothing is gathered or merged.  Boundaries past the last target (a
+    backend's padding) are not read.  The events may hold views of ``idx``
+    and ``vals``.
     """
     from gci_tpu_torch.depth.eventspace import DepthEvents
 
-    names = layout.names
-    gather_list: list[np.ndarray] = []
-    spans: list[tuple[int, int, int]] = []  # (gather_lo, gather_hi, L)
-    cursor = 0
-    for k in range(len(names)):
-        o = int(layout.offsets[k])
-        L = int(layout.lengths[k])
-        lo = np.searchsorted(idx, o, side="left")
-        hi = np.searchsorted(idx, o + L, side="left")
-        b = idx[lo:hi]
-        if b.shape[0] == 0 or b[0] != o:
-            b = np.concatenate([[o], b])
-        gather_list.append(b)
-        spans.append((cursor, cursor + b.shape[0], L))
-        cursor += b.shape[0]
-    all_idx = (
-        np.concatenate(gather_list) if gather_list else np.empty(0, np.int64)
-    )
-    vals = (
-        gather(all_idx.astype(np.int64))
-        if all_idx.shape[0]
-        else np.empty(0, np.int64)
-    )
-    out: dict[str, DepthEvents] = {}
-    for k, name in enumerate(names):
-        glo, ghi, L = spans[k]
-        b = gather_list[k] - int(layout.offsets[k])
-        out[name] = DepthEvents(b.astype(np.int64), vals[glo:ghi], L)._dedup()
+    starts = layout.offsets[:-1]
+    lo = np.searchsorted(idx, starts)
+    hi = np.searchsorted(idx, starts + layout.lengths)
+    # the run holding each start (a zero-length target may start on a boundary)
+    holding = vals[np.searchsorted(idx, starts, side="right") - 1]
+    out = {}
+    for k, name in enumerate(layout.names):
+        o, a, b = int(starts[k]), int(lo[k]), int(hi[k])
+        if a < b and idx[a] == o:
+            bounds, values = idx[a:b] - o, vals[a:b]
+        else:
+            bounds = np.empty(b - a + 1, np.int64)
+            bounds[0] = 0
+            np.subtract(idx[a:b], o, out=bounds[1:])
+            values = np.empty(b - a + 1, np.int64)
+            values[0] = holding[k]
+            values[1:] = vals[a:b]
+        out[name] = DepthEvents(bounds, values, int(layout.lengths[k]))
     return out

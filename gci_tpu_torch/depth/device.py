@@ -422,19 +422,17 @@ def sharded_compact_gather(flags: dict, masks: tuple,
     return _gather_shard_records(out)
 
 
-def sharded_runs(mesh, depth: dict, offsets: dict,
+def sharded_runs(mesh, depth: dict,
                  capacity: int | None = None) -> dict[int, list[np.ndarray]]:
-    """{gp index: [idx, vals, offset_vals]} for every shard, int64 host
-    arrays: the sorted shard-local run boundaries of the depth (across a
-    shard border against the left shard's last value; global slot 0 is
-    always a boundary), the depth of each run, and the depth at the
-    shard-local ``offsets[g]``.
+    """{gp index: [idx, vals]} for every shard, int64 host arrays: the
+    sorted shard-local run boundaries of the depth (across a shard border
+    against the left shard's last value; global slot 0 is always a
+    boundary) and the depth of each run.
 
     Per shard of this process: the run form of the compaction kernel, with
     the left shard's last value (one host all-gather of every shard's last
-    element) as its carry, and the offsets' gather, read back in one
-    transfer (``capacity`` bounds each shard's count, as in
-    ``sharded_compact_gather``); then one host
+    element) as its carry, read back in one transfer (``capacity`` bounds
+    each shard's count, as in ``sharded_compact_gather``); then one host
     all-gather across processes.
     """
     last = shard_values(mesh, {g: int(x[-1]) for g, x in depth.items()})
@@ -442,6 +440,5 @@ def sharded_runs(mesh, depth: dict, offsets: dict,
     for g, x in depth.items():
         idx, vals = compact_runs(x, last[g - 1] if g else None,
                                  capacity_for(capacity, x.shape[0], 1, True))
-        off = torch.as_tensor(offsets[g], dtype=torch.int64, device=x.device)
-        out[g] = _to_host([idx, vals, x[off]])
+        out[g] = _to_host([idx, vals])
     return _gather_shard_records(out)

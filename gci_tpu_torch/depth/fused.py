@@ -33,7 +33,7 @@ import torch
 from gci_tpu_torch.depth.accum import GenomeLayout, depth_dict_from_flat
 from gci_tpu_torch.depth.base import (
     ResidentDepth,
-    events_from_change_indices,
+    events_from_boundaries,
     gap_interval_events,
 )
 from gci_tpu_torch.depth.device import (
@@ -100,60 +100,51 @@ def _edges(depth: torch.Tensor, valid: torch.Tensor, lo: int, hi: int) -> torch.
     return rise.view(torch.int8) + fall.view(torch.int8) * 2
 
 
-def _flags(pad_total: int, device: torch.device, gap_s, gap_e, val_s, val_e):
+def _flags(total: int, device: torch.device, gap_s, gap_e, val_s, val_e):
     """Flag bytes: bit0 in-gap, bit1 scan-window valid, from O(intervals)
     scatters and two device prefix sums (the reference's ``_flags_fn``)."""
-    gd = scatter_events(pad_total, device, [(gap_s, 1), (gap_e, -1)])
+    gd = scatter_events(total, device, [(gap_s, 1), (gap_e, -1)])
     out = (_local_prefix_sum(gd) > 0).to(torch.int8)
     del gd
-    vd = scatter_events(pad_total, device, [(val_s, 1), (val_e, -1)])
+    vd = scatter_events(total, device, [(val_s, 1), (val_e, -1)])
     out += (_local_prefix_sum(vd) > 0).to(torch.int8) * 2
     return out
 
 
-def flags_for(layout: GenomeLayout, gaps, flank_len: int, pad_total: int,
+def flags_for(layout: GenomeLayout, gaps, flank_len: int, total: int,
               device: torch.device) -> torch.Tensor:
     """Device int8 flag bytes: bit0 = in-N-gap, bit1 = scan-window valid."""
     gap_s, gap_e = gap_interval_events(layout, gaps)
     val_s, val_e = _valid_intervals(layout, flank_len)
-    return _flags(pad_total, device, gap_s, gap_e, val_s, val_e)
+    return _flags(total, device, gap_s, gap_e, val_s, val_e)
 
 
-def valid_marks_for(layout: GenomeLayout, flank_len: int, pad_total: int,
+def valid_marks_for(layout: GenomeLayout, flank_len: int, total: int,
                     device: torch.device) -> torch.Tensor:
     """Device int8 flag bytes with only the valid bit (bit1) populated."""
-    return flags_for(layout, None, flank_len, pad_total, device)
+    return flags_for(layout, None, flank_len, total, device)
 
 
-def _offset_values(array: torch.Tensor, layout: GenomeLayout) -> torch.Tensor:
-    """``array`` at every target's first slot."""
-    return array[torch.as_tensor(np.asarray(layout.offsets[:-1], np.int64),
-                                 device=array.device)]
-
-
-def _batched_flags_readback(array, layout: GenomeLayout, flags, masks: tuple,
-                            gather_stream: int, capacity: int | None = None):
+def _batched_flags_readback(array, flags, masks: tuple, gather_stream: int,
+                            capacity: int | None = None):
     """One compaction of the bit-masks of one flag byte array (the kernel's
     rise/fall/change output; ``capacity``, a bound on each count, sizes its
-    buffers through ``capacity_for``), then
-    ``array`` at the gather stream's indices and at every target offset, all
-    read back in one transfer.  Counts are exact (the reference pads them
-    to powers of two for static XLA shapes).  Returns (list of int64 index
-    arrays, gathered values, values at the offsets)."""
+    buffers through ``capacity_for``), then ``array`` at the gather
+    stream's indices, all read back in one transfer.  Counts are exact (the
+    reference pads them to powers of two for static XLA shapes).  Returns
+    (list of int64 index arrays, gathered values)."""
     with span("fused.readback"):
         idx = compact_flags(flags, masks, capacity_for(capacity, flags.shape[0], len(masks)))
-        *out_idx, gathered, offset_vals = _to_host(
-            idx + [array[idx[gather_stream]], _offset_values(array, layout)])
-    return out_idx, gathered, offset_vals
+        *out_idx, gathered = _to_host(idx + [array[idx[gather_stream]]])
+    return out_idx, gathered
 
 
-def _runs_readback(array, layout: GenomeLayout, capacity: int | None = None):
-    """(run-boundary indices, the depth of each run, ``array`` at every
-    target offset) as int64 host arrays: one run-form compaction
-    (``capacity`` bounds its count, as in ``_batched_flags_readback``), one
-    transfer."""
+def _runs_readback(array, capacity: int | None = None):
+    """(run-boundary indices, the depth of each run) as int64 host arrays:
+    one run-form compaction (``capacity`` bounds its count, as in
+    ``_batched_flags_readback``), one transfer."""
     idx, vals = compact_runs(array, None, capacity_for(capacity, array.shape[0], 1, True))
-    return tuple(_to_host([idx, vals, _offset_values(array, layout)]))
+    return tuple(_to_host([idx, vals]))
 
 
 def compact_indices(bitmap: torch.Tensor) -> np.ndarray:
@@ -178,10 +169,10 @@ def _event_rows(layout: GenomeLayout, n_reads: int, gaps, flank_len: int) -> int
     return 2 * (n_reads + n_gaps + len(_valid_intervals(layout, flank_len)[0]))
 
 
-def _scatter(pad_total: int, device: torch.device, events) -> torch.Tensor:
+def _scatter(total: int, device: torch.device, events) -> torch.Tensor:
     """``scatter_events`` in the span ``fused.scatter``."""
     with span("fused.scatter"):
-        return scatter_events(pad_total, device, events)
+        return scatter_events(total, device, events)
 
 
 def packed_event_word(layout: GenomeLayout, target_id: np.ndarray,
@@ -197,7 +188,7 @@ def packed_event_word(layout: GenomeLayout, target_id: np.ndarray,
         _check_disjoint(gap_s, gap_e)
         val_s, val_e = _valid_intervals(layout, flank_len)
         live4 = live << 2
-    return _scatter(DeviceDepth.pad_total_for(layout.total_slots), device, [
+    return _scatter(layout.total_slots, device, [
         (gs, live4), (ge, -live4), (gap_s, 2), (gap_e, -2), (val_s, 1), (val_e, -1),
     ])
 
@@ -215,13 +206,12 @@ class DeviceDepth(ResidentDepth):
     from the fused kernel pass.
     """
 
-    def __init__(self, layout: GenomeLayout, array: torch.Tensor, pad_total: int,
+    def __init__(self, layout: GenomeLayout, array: torch.Tensor,
                  gap_marks: torch.Tensor | None = None, gaps_src=None,
-                 edge_cache=None, change_idx: np.ndarray | None = None,
+                 edge_cache=None, runs: tuple | None = None,
                  gap_bit: int = 1, change_bound: int | None = None):
         self.layout = layout
-        self.array = array          # int32 (pad_total,) — current depth
-        self.pad_total = pad_total
+        self.array = array          # int32 (layout.total_slots,) — current depth
         # at most this many run boundaries of array (slot 0 included), the
         # capacity of its compactions; None where not known
         self.change_bound = change_bound
@@ -229,37 +219,19 @@ class DeviceDepth(ResidentDepth):
         self.gap_bit = gap_bit      # which bit of gap_marks means "in gap"
         self._gaps_src = gaps_src   # the gaps dict gap_marks was built from
         self._edge_cache: dict = dict(edge_cache or {})
-        self._change_idx = change_idx  # run boundaries of self.array
+        # (run-boundary slots, the depth of each run) of self.array, int64
+        # host arrays; None until read back
+        self._runs = runs
         self._pending_masked_edges = None  # (key, intervals) valid post-mask
         self._events = None
-        # host value lookup for to_events: sorted positions + values at
-        # (change indices union target offsets), filled by the batched
-        # readback so to_events needs no further device round-trips
-        self._gather_pos: np.ndarray | None = None
-        self._gather_vals: np.ndarray | None = None
 
     @property
     def device(self) -> torch.device:
         return self.array.device
 
-    def _set_gather_map(self, change_idx, change_vals, offset_vals) -> None:
-        pos = np.concatenate(
-            [change_idx, np.asarray(self.layout.offsets[:-1], np.int64)]
-        )
-        vals = np.concatenate([change_vals, offset_vals])
-        order = np.argsort(pos, kind="stable")
-        self._gather_pos = pos[order]
-        self._gather_vals = vals[order]
-
     # ------------------------------------------------------------ construct
     @staticmethod
-    def pad_total_for(total: int) -> int:
-        """Genome-axis size on the device: the kernels take any length, so
-        there is no padding (the reference buckets sizes for TPU compiles)."""
-        return total
-
-    @staticmethod
-    def gap_marks_for(layout: GenomeLayout, gaps, pad_total: int,
+    def gap_marks_for(layout: GenomeLayout, gaps, total: int,
                       device: torch.device):
         """Device int8 flag bytes with only the gap bit (bit0) populated
         (None if no gaps) — built on device from O(gaps) scatter events."""
@@ -267,7 +239,7 @@ class DeviceDepth(ResidentDepth):
         if starts.shape[0] == 0:
             return None
         empty = np.empty(0, np.int64)
-        return _flags(pad_total, device, starts, stops, empty, empty)
+        return _flags(total, device, starts, stops, empty, empty)
 
     @classmethod
     def from_reads(
@@ -305,15 +277,14 @@ class DeviceDepth(ResidentDepth):
                     packed_event_word(layout, target_id, start, end, flank_len, gaps, device),
                     gaps, flank_len, issue_range, rows,
                 )
-            pad_total = cls.pad_total_for(layout.total_slots)
             # the flags first: their transient prefix buffers then do not
             # coexist with the delta
             with span("fused.scatter"):
-                flags = flags_for(layout, gaps, flank_len, pad_total, device)
+                flags = flags_for(layout, gaps, flank_len, layout.total_slots, device)
             with span("fused.pack"):
                 gs, ge, live = pack_read_deltas(layout, target_id, start, end, flank_len)
             return cls._from_flags_scan(
-                layout, _scatter(pad_total, device, [(gs, live), (ge, -live)]),
+                layout, _scatter(layout.total_slots, device, [(gs, live), (ge, -live)]),
                 flags, gaps, flank_len, issue_range, rows,
             )
 
@@ -342,15 +313,14 @@ class DeviceDepth(ResidentDepth):
         packed word could wrap, so the flags scan runs instead.  Spans as
         in ``from_reads``, with no ``fused.pack``.
         """
-        pad_total = int(delta.shape[0])
-        if pad_total != cls.pad_total_for(layout.total_slots):
-            raise ValueError(f"delta has {pad_total} slots, layout {layout.total_slots}")
+        if delta.shape[0] != layout.total_slots:
+            raise ValueError(f"delta has {delta.shape[0]} slots, layout {layout.total_slots}")
         if rows is not None:
             rows += _event_rows(layout, 0, gaps, flank_len)
         with span("fused.build"):
             if int(delta.clamp(min=0).sum(dtype=torch.int64)) >= PACKED_DEPTH_LIMIT:
                 with span("fused.scatter"):
-                    flags = flags_for(layout, gaps, flank_len, pad_total, delta.device)
+                    flags = flags_for(layout, gaps, flank_len, layout.total_slots, delta.device)
                 return cls._from_flags_scan(layout, delta, flags, gaps, flank_len,
                                             issue_range, rows)
             gap_s, gap_e = gap_interval_events(layout, gaps)
@@ -364,26 +334,22 @@ class DeviceDepth(ResidentDepth):
             with span("fused.scan"):
                 raw, out_flags = fused_depth_scan_packed(delta, int(lo), int(hi))
             del delta
-            return cls._from_packed_scan(layout, pad_total, raw, out_flags, gaps,
-                                         flank_len, lo, hi, rows)
+            return cls._from_packed_scan(layout, raw, out_flags, gaps, flank_len, lo, hi, rows)
 
     @classmethod
     def _from_word(cls, layout, word, gaps, flank_len, issue_range, rows):
         lo, hi = issue_range
         with span("fused.scan"):
             raw, out_flags = fused_depth_scan_packed(word, int(lo), int(hi))
-        pad_total = word.shape[0]
         del word
-        return cls._from_packed_scan(layout, pad_total, raw, out_flags, gaps,
-                                     flank_len, lo, hi, rows)
+        return cls._from_packed_scan(layout, raw, out_flags, gaps, flank_len, lo, hi, rows)
 
     @classmethod
-    def _from_packed_scan(cls, layout, pad_total, raw, out_flags, gaps,
-                          flank_len, lo, hi, rows):
+    def _from_packed_scan(cls, layout, raw, out_flags, gaps, flank_len, lo, hi, rows):
         # the flag byte's bit3 is the gap mask, kept only when there are gaps
         has_gaps = gap_interval_events(layout, gaps)[0].shape[0] > 0
         return cls._from_kernel_outputs(
-            layout, pad_total, raw, out_flags,
+            layout, raw, out_flags,
             out_flags if has_gaps else None, gaps, flank_len, lo, hi, rows,
             gap_bit=8,
         )
@@ -395,34 +361,29 @@ class DeviceDepth(ResidentDepth):
         lo, hi = issue_range
         with span("fused.scan"):
             raw, out_flags = fused_depth_scan_flags(delta, flags, int(lo), int(hi))
-        pad_total = delta.shape[0]
         del delta
         has_gaps = gap_interval_events(layout, gaps)[0].shape[0] > 0
         return cls._from_kernel_outputs(
-            layout, pad_total, raw, out_flags, flags if has_gaps else None,
+            layout, raw, out_flags, flags if has_gaps else None,
             gaps, flank_len, lo, hi, rows, gap_bit=1,
         )
 
     @classmethod
-    def _from_kernel_outputs(cls, layout, pad_total, raw, out_flags,
-                             gap_marks, gaps, flank_len, lo, hi, rows,
-                             gap_bit: int = 1):
+    def _from_kernel_outputs(cls, layout, raw, out_flags, gap_marks, gaps,
+                             flank_len, lo, hi, rows, gap_bit: int = 1):
         # one batched readback for all three edge bit-streams + run values
-        # at the change indices and target offsets; a bit of the flag byte
-        # is set only where the word or delta and flags got a scatter row,
-        # or at slot 0: ``rows`` + 1 bounds each stream
-        (rise_idx, fall_idx, change_idx), change_vals, offset_vals = (
-            _batched_flags_readback(raw, layout, out_flags, (1, 2, 4), 2,
-                                    None if rows is None else rows + 1)
-        )
+        # at the change indices, which with them are the run form; a bit of
+        # the flag byte is set only where the word or delta and flags got a
+        # scatter row, or at slot 0: ``rows`` + 1 bounds each stream
+        (rise_idx, fall_idx, change_idx), change_vals = _batched_flags_readback(
+            raw, out_flags, (1, 2, 4), 2, None if rows is None else rows + 1)
         with span("fused.intervals"):
             intervals = edge_indices_to_intervals(
                 layout, rise_idx, fall_idx, flank_len
             )
-            dd = cls(layout, raw, pad_total, gap_marks, gaps_src=gaps,
-                     change_idx=change_idx, gap_bit=gap_bit,
+            dd = cls(layout, raw, gap_marks, gaps_src=gaps,
+                     runs=(change_idx, change_vals), gap_bit=gap_bit,
                      change_bound=change_idx.shape[0])
-            dd._set_gather_map(change_idx, change_vals, offset_vals)
         key = (float(lo), float(hi), int(flank_len))
         dd._pending_masked_edges = (key, intervals)
         if gap_marks is None:
@@ -439,19 +400,19 @@ class DeviceDepth(ResidentDepth):
         Slots past the layout (another backend's padding) must be zero and
         are dropped.  Run boundaries and edges are recomputed on demand.
         """
-        pad_total = cls.pad_total_for(layout.total_slots)
+        total = layout.total_slots
 
         def load(a, dtype):
             a = np.asarray(a, dtype)
-            if a.shape[0] < pad_total or a[pad_total:].any():
+            if a.shape[0] < total or a[total:].any():
                 raise ValueError(
                     f"state of {a.shape[0]} slots does not fit a layout of "
-                    f"{pad_total} (or its padding is not zero)"
+                    f"{total} (or its padding is not zero)"
                 )
-            return torch.tensor(a[:pad_total], device=device)
+            return torch.tensor(a[:total], device=device)
 
         marks = None if gap_marks is None else load(gap_marks, np.int8)
-        return cls(layout, load(array, np.int32), pad_total, marks,
+        return cls(layout, load(array, np.int32), marks,
                    gaps_src=gaps_src, gap_bit=gap_bit)
 
     # ------------------------------------------------------------------ ops
@@ -463,7 +424,7 @@ class DeviceDepth(ResidentDepth):
         gap_bit = self.gap_bit
         pending = self._pending_masked_edges
         if marks is None or gaps is not self._gaps_src:
-            marks = self.gap_marks_for(self.layout, gaps, self.pad_total, self.device)
+            marks = self.gap_marks_for(self.layout, gaps, self.array.shape[0], self.device)
             gap_bit = 1
             if marks is None:
                 return self
@@ -474,21 +435,21 @@ class DeviceDepth(ResidentDepth):
         bound = self.change_bound
         if bound is not None:
             bound += 2 * gap_interval_events(self.layout, gaps)[0].shape[0]
-        return DeviceDepth(self.layout, arr, self.pad_total, marks,
+        return DeviceDepth(self.layout, arr, marks,
                            gaps_src=gaps, edge_cache=cache, gap_bit=gap_bit,
                            change_bound=bound)
 
     def maximum(self, other: "DeviceDepth") -> "DeviceDepth":
         """Per-base two-type max, on device (GCI.py:332-353); span
         ``merge.max``."""
-        if self.pad_total != other.pad_total:
+        if self.array.shape[0] != other.array.shape[0]:
             raise ValueError("two-type max of depths over different layouts")
         # a boundary of the max is a boundary of either depth
         bound = (None if self.change_bound is None or other.change_bound is None
                  else self.change_bound + other.change_bound)
         with span("merge.max"):
             return DeviceDepth(
-                self.layout, torch.maximum(self.array, other.array), self.pad_total,
+                self.layout, torch.maximum(self.array, other.array),
                 self.gap_marks, gaps_src=self._gaps_src, gap_bit=self.gap_bit,
                 change_bound=bound,
             )
@@ -506,7 +467,7 @@ class DeviceDepth(ResidentDepth):
         key = (float(leftmost), float(rightmost), int(flank_len))
         if start_pos == 0 and key in self._edge_cache:
             return self._edge_cache[key]
-        valid = valid_marks_for(self.layout, flank_len, self.pad_total, self.device)
+        valid = valid_marks_for(self.layout, flank_len, self.array.shape[0], self.device)
         edges = _edges(self.array, valid, int(leftmost), int(rightmost))
         del valid
         # an edge falls on a run boundary or on a scan-window border
@@ -526,29 +487,18 @@ class DeviceDepth(ResidentDepth):
     # ------------------------------------------------------------ host view
     def to_events(self):
         """O(runs) host view: {target: DepthEvents} (checkpoint, regions,
-        plotting).  Run boundaries come straight from the fused kernel when
-        available; values from the same batched readback.  The span
-        ``checkpoint.runs``, where the runs are not cached yet."""
+        plotting), from the run form: the fused kernel's change bit and the
+        depth of each run when the value came from a scan, else one run-form
+        compaction.  The span ``checkpoint.runs``, where the events are not
+        cached yet."""
         if self._events is not None:
             return self._events
         with span("checkpoint.runs"):
-            if self._change_idx is None or self._gather_pos is None:
-                # masked/merged objects: the run form of the compaction gives
-                # the boundaries and their values at once
-                self._change_idx, change_vals, offset_vals = _runs_readback(
-                    self.array, self.layout, self.change_bound)
-                self.change_bound = self._change_idx.shape[0]
-                self._set_gather_map(self._change_idx, change_vals, offset_vals)
-
-            def gather(all_idx: np.ndarray) -> np.ndarray:
-                # all_idx ⊆ change indices ∪ target offsets — both already on
-                # host from the packed readback; no device round-trip
-                j = np.searchsorted(self._gather_pos, all_idx)
-                return self._gather_vals[j]
-
-            self._events = events_from_change_indices(
-                self.layout, self._change_idx, gather
-            )
+            if self._runs is None:
+                # masked, merged and from_state values
+                self._runs = _runs_readback(self.array, self.change_bound)
+                self.change_bound = self._runs[0].shape[0]
+            self._events = events_from_boundaries(self.layout, *self._runs)
         return self._events
 
     def materialize_dict(self) -> dict[str, np.ndarray]:

@@ -14,8 +14,8 @@ The reference's global-array helpers map so: ``_to_global`` (each process
 feeds only its dp rows) is the row range each position takes in
 ``device.sharded_depth``; ``_gp_global`` is ``_gp_shards``;
 ``_replicated_global`` has no counterpart, since host values (the issue
-range, the target offsets) go to each shard's device with the call that
-uses them; ``_host_all`` is ``_host_all``.
+range) go to each shard's device with the call that uses them;
+``_host_all`` is ``_host_all``.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ import torch
 from gci_tpu_torch.depth.accum import GenomeLayout, depth_dict_from_flat
 from gci_tpu_torch.depth.base import (
     ResidentDepth,
-    events_from_change_indices,
+    events_from_boundaries,
     gap_interval_events,
 )
 from gci_tpu_torch.depth.device import (
@@ -262,33 +262,17 @@ class ShardedDepth(ResidentDepth):
         """O(runs) host view: {target: DepthEvents}.
 
         Run boundaries compacted per shard by the run form of the
-        compaction kernel, with the depth of each run and at every target
-        start, in one readback per shard.  Used for the checkpoint writer,
-        the regions report and plotting.
+        compaction kernel, with the depth of each run, in one readback per
+        shard; each shard's carry is its left neighbour's last value, so
+        the shards' runs together are the genome's run form.  Used for the
+        checkpoint writer, the regions report and plotting.
         """
         if self._events is not None:
             return self._events
-        offsets = np.asarray(self.layout.offsets[:-1], np.int64)
-        gp = self.mesh.shape["gp"]
-        shard = self.pad_total // gp
-        o_shard = offsets // shard
-        res = sharded_runs(self.mesh, self.shards,
-                           {g: offsets[o_shard == g] % shard for g in self.shards},
-                           self.change_bound)
+        res = sharded_runs(self.mesh, self.shards, self.change_bound)
         idx = _global_indices(self.mesh, self.pad_total, res, 0)
-        vals = np.concatenate([res[g][1] for g in range(gp)])
-        offset_vals = np.empty(offsets.shape[0], np.int64)
-        for g in range(gp):
-            offset_vals[o_shard == g] = res[g][2]
-        pos = np.concatenate([idx, offsets])
-        allv = np.concatenate([vals, offset_vals])
-        order = np.argsort(pos, kind="stable")
-        pos, allv = pos[order], allv[order]
-
-        def gather(all_idx: np.ndarray) -> np.ndarray:
-            return allv[np.searchsorted(pos, all_idx)]
-
-        self._events = events_from_change_indices(self.layout, idx, gather)
+        vals = np.concatenate([res[g][1] for g in range(self.mesh.shape["gp"])])
+        self._events = events_from_boundaries(self.layout, idx, vals)
         return self._events
 
     def materialize_dict(self) -> dict[str, np.ndarray]:

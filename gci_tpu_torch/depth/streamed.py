@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from gci_tpu_torch.depth.accum import GenomeLayout, clamp_read_intervals
+from gci_tpu_torch.depth.base import events_from_boundaries
 from gci_tpu_torch.depth.device import scatter_events
 from gci_tpu_torch.depth.scan import capacity_for, compact_runs, depth_scan
 from gci_tpu_torch.native import HostCodecError, partition_read_events_native
@@ -279,17 +280,11 @@ def chunk_runs(depth: torch.Tensor, a: int, carry: int, rows: int | None = None)
 def events_from_runs(layout: GenomeLayout, runs):
     """{target: DepthEvents} from the chunks' ``chunk_runs`` in genome order.
 
-    The concatenated runs must be what ``chunk_runs`` makes of a genome:
-    int64 slots strictly increasing, the first at slot 0, and adjacent
-    depths different (each chunk's slot 0 is compared with its carry).
-    A target's events are then the slice of the runs inside it, shifted to
-    its start, with a boundary put at slot 0 where none falls there, valued
-    by the run that holds the target's start: already the canonical form,
-    so nothing is merged.  The events may hold views of the runs' arrays.
-    The boundaries read back count in ``streamed.boundaries``.
+    The concatenated runs must be what ``chunk_runs`` makes of a genome, the
+    run form ``events_from_boundaries`` takes: each chunk's slot 0 is
+    compared with its carry, so adjacent depths differ across chunk borders
+    too.  The boundaries read back count in ``streamed.boundaries``.
     """
-    from gci_tpu_torch.depth.eventspace import DepthEvents
-
     runs = [r for r in runs if r[0].shape[0]]
     count("streamed.boundaries", sum(r[0].shape[0] for r in runs))
     if runs:
@@ -297,23 +292,4 @@ def events_from_runs(layout: GenomeLayout, runs):
         vals = np.concatenate([r[1] for r in runs])
     else:  # a genome of no slots
         idx = vals = np.zeros(1, np.int64)
-    starts = layout.offsets[:-1]
-    lo = np.searchsorted(idx, starts)
-    hi = np.searchsorted(idx, starts + layout.lengths)
-    # the run holding each start (a zero-length target may start on a boundary)
-    holding = vals[np.searchsorted(idx, starts, side="right") - 1]
-    out = {}
-    for k, name in enumerate(layout.names):
-        o, a, b = int(starts[k]), int(lo[k]), int(hi[k])
-        if a < b and idx[a] == o:
-            bounds, values = idx[a:b] - o, vals[a:b]
-        else:
-            bounds = np.empty(b - a + 1, np.int64)
-            bounds[0] = 0
-            np.subtract(idx[a:b], o, out=bounds[1:])
-            values = np.empty(b - a + 1, np.int64)
-            values[0] = holding[k]
-            values[1:] = vals[a:b]
-        out[name] = DepthEvents(bounds, values, int(layout.lengths[k]))
-    return out
-
+    return events_from_boundaries(layout, idx, vals)

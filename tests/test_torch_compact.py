@@ -113,8 +113,8 @@ def test_flag_form_matches_jax_flags_readback(rng, kind):
     flags = (noise | bits.astype(np.uint8)).view(np.int8)
     depth = _runs(rng)
     layout = _layout(N)
-    got = fused._batched_flags_readback(torch.from_numpy(depth), layout,
-                                        torch.from_numpy(flags), (1, 2, 4), 2)
+    got = fused._batched_flags_readback(torch.from_numpy(depth), torch.from_numpy(flags),
+                                        (1, 2, 4), 2)
     want = jax_fused._batched_flags_readback(jnp.asarray(depth), layout,
                                              jnp.asarray(flags), (1, 2, 4), 2)
     for g, w in zip(got[0], want[0], strict=True):
@@ -122,7 +122,6 @@ def test_flag_form_matches_jax_flags_readback(rng, kind):
         np.testing.assert_array_equal(g, w)
     np.testing.assert_array_equal(got[0][2], np.flatnonzero(on))
     np.testing.assert_array_equal(got[1], want[1])
-    np.testing.assert_array_equal(got[2], want[2])
 
 
 @pytest.mark.parametrize("masks", [(1,), (0x80,), (0xFF,), (3, 0x40), (1, 2, 4),
@@ -166,18 +165,16 @@ def _depth(rng, shape: str, n: int = N) -> np.ndarray:
 
 @pytest.mark.parametrize("shape", RUN_SHAPES)
 def test_run_form_matches_jax_edge_readback(rng, shape):
-    """The run boundaries of a depth (slot 0 forced) with each run's depth
-    and the depth at the target offsets, against gci_tpu's readback of the
-    change bitmap."""
+    """The run boundaries of a depth (slot 0 forced) with each run's depth,
+    against gci_tpu's readback of the change bitmap."""
     depth = _depth(rng, shape)
     layout = _layout(N)
     change = np.concatenate([[True], depth[1:] != depth[:-1]]).astype(np.int8)
     want = jax_fused._batched_edge_readback(jnp.asarray(depth), layout,
                                             (jnp.asarray(change),), 0)
-    idx, vals, offset_vals = fused._runs_readback(torch.from_numpy(depth), layout)
+    idx, vals = fused._runs_readback(torch.from_numpy(depth))
     np.testing.assert_array_equal(idx, want[0][0])
     np.testing.assert_array_equal(vals, want[1])
-    np.testing.assert_array_equal(offset_vals, want[2])
     assert idx.dtype == vals.dtype == np.int64
 
 
@@ -272,20 +269,18 @@ def test_sharded_forms_match_jax_on_8_devices(rng, dp, gp):
                 for g in pmesh.local_gp()}
 
     got_flags = device.sharded_compact_gather(shards(flags), (0xFF,))
-    got_runs = device.sharded_runs(pmesh, shards(depth),
-                                   {g: offsets[o_shard == g] % shard for g in range(gp)})
+    got_runs = device.sharded_runs(pmesh, shards(depth))
     assert sorted(got_flags) == sorted(got_runs) == list(range(gp))
     for g in range(gp):
         counts, idx, _, _ = want["flags"]
         assert got_flags[g][0].shape[0] == counts[g]
         np.testing.assert_array_equal(got_flags[g][0], idx[g][idx[g] >= 0])
-        counts, idx, vals, ovals = want["runs"]
-        r_idx, r_vals, r_ovals = got_runs[g]
+        counts, idx, vals, _ = want["runs"]
+        r_idx, r_vals = got_runs[g]
         keep = idx[g] >= 0
         assert r_idx.shape[0] == counts[g]
         np.testing.assert_array_equal(r_idx, idx[g][keep])
         np.testing.assert_array_equal(r_vals, vals[g][keep])
-        np.testing.assert_array_equal(r_ovals, ovals[g][: r_ovals.shape[0]])
         if g:
             assert (0 in r_idx.tolist()) == (g % 2 == 0)
 

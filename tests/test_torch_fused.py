@@ -97,7 +97,7 @@ def test_from_delta_matches_from_reads(rng):
     gaps = {"a": [(500, 700)]}
     dd1 = DeviceDepth.from_reads(layout, tid, start, end, 15, gaps=gaps, device=CPU)
     gs, ge, live = tdevice.pack_read_deltas(layout, tid, start, end, 15)
-    delta = np.zeros(DeviceDepth.pad_total_for(layout.total_slots), np.int32)
+    delta = np.zeros(layout.total_slots, np.int32)
     np.add.at(delta, gs, live)
     np.add.at(delta, ge, -live)
     dd2 = DeviceDepth.from_delta(layout, torch.from_numpy(delta), 15, gaps=gaps)
@@ -207,7 +207,7 @@ def test_fallback_takes_the_flags_kernel(rng, monkeypatch):
 
 def _delta_of(layout, tid, start, end):
     gs, ge, live = tdevice.pack_read_deltas(layout, tid, start, end, 15)
-    delta = np.zeros(DeviceDepth.pad_total_for(layout.total_slots), np.int32)
+    delta = np.zeros(layout.total_slots, np.int32)
     np.add.at(delta, gs, live)
     np.add.at(delta, ge, -live)
     return delta
@@ -372,6 +372,69 @@ def test_host_helpers_match_jax_module(rng):
         assert tdevice.edge_indices_to_intervals(layout, rise, fall, 15, sp) == (
             jdevice.edge_indices_to_intervals(layout, rise, fall, 15, sp)
         )
+
+
+# ---------------------------------------------------------------------------
+# the run form the read-out gets
+# ---------------------------------------------------------------------------
+
+# a one-slot, a zero-length and a short target among long ones; the gaps
+# start on a target's first slot and end on another's last
+RUN_FORM_TARGETS = {"a": 5000, "one": 1, "z": 0, "b": 3000, "tiny": 20}
+RUN_FORM_GAPS = {"a": [(0, 120), (4000, 4100)], "b": [(2900, 3000)], "tiny": [(5, 9)]}
+
+
+def _run_form_reads(rng, layout):
+    """Reads over every target, one on every other target's first slot."""
+    tid, start, end = _reads(rng, layout, 400, 2500)
+    firsts = np.arange(0, len(layout.names), 2)
+    tid[:firsts.shape[0]], start[:firsts.shape[0]] = firsts, 0
+    start = np.minimum(start, layout.lengths[tid])
+    return tid, start, np.maximum(end, start + 1)
+
+
+@pytest.mark.parametrize("case", ["packed", "flags", "masked", "maximum", "from_state"])
+def test_resident_runs_keep_the_invariant(rng, monkeypatch, case):
+    """What ``events_from_boundaries`` gets from each source of the run
+    form (the scans' change bit on the packed and flags paths, the run-form
+    compaction of masked, merged and ``from_state`` values) is int64,
+    strictly increasing from slot 0 with neighbouring depths different, and
+    the events equal gci_tpu's array by array (flank 0: a read may start
+    on a target's first slot)."""
+    import gci_tpu_torch.depth.fused as fused
+
+    seen = []
+    real = fused.events_from_boundaries
+    monkeypatch.setattr(fused, "events_from_boundaries",
+                        lambda layout, idx, vals: (seen.append((idx, vals)),
+                                                   real(layout, idx, vals))[1])
+    layout = GenomeLayout.from_targets(RUN_FORM_TARGETS)
+    tid, start, end = _run_form_reads(rng, layout)
+    if case == "flags":
+        _lower_limits(monkeypatch)
+    kw = dict(gaps=RUN_FORM_GAPS, issue_range=(-1, 1))
+    got = DeviceDepth.from_reads(layout, tid, start, end, 0, device=CPU, **kw)
+    ref = JaxDeviceDepth.from_reads(layout, tid, start, end, 0, **kw)
+    if case == "masked":
+        got, ref = got.mask_gaps(RUN_FORM_GAPS), ref.mask_gaps(RUN_FORM_GAPS)
+    elif case == "maximum":
+        tid2, start2, end2 = _run_form_reads(rng, layout)
+        got = got.maximum(DeviceDepth.from_reads(layout, tid2, start2, end2, 0,
+                                                 device=CPU, **kw))
+        ref = ref.maximum(JaxDeviceDepth.from_reads(layout, tid2, start2, end2, 0, **kw))
+    elif case == "from_state":
+        got = DeviceDepth.from_state(layout, np.asarray(ref.array), device=CPU)
+    events = got.to_events()
+    ((idx, vals),) = seen
+    assert idx.dtype == vals.dtype == np.int64
+    assert idx[0] == 0 and np.all(np.diff(idx) > 0)
+    assert np.all(vals[1:] != vals[:-1])
+    want = ref.to_events()
+    assert list(events) == list(want) == list(RUN_FORM_TARGETS)
+    for t in want:
+        np.testing.assert_array_equal(events[t].boundaries, want[t].boundaries, err_msg=t)
+        np.testing.assert_array_equal(events[t].values, want[t].values, err_msg=t)
+        assert events[t].length == want[t].length, t
 
 
 @pytest.mark.cuda

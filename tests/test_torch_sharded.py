@@ -134,21 +134,18 @@ def test_change_program_matches_jax(reads, dp, gp):
     jmesh, pmesh, pad_total, want_depth, got_depth = _depth_pair(reads, dp, gp)
     """The run form per shard (the left shard's last value as its carry)
     against the set slots of the reference's change program, with the
-    depth of each run and at a few offsets."""
+    depth of each run."""
     with jmesh:
         want = np.asarray(jax_device.make_sharded_change_fn(jmesh, pad_total)(want_depth))
     shard = pad_total // gp
     depth = np.asarray(want_depth)
-    rng = np.random.default_rng(0xC4 + gp)
-    offs = {g: np.sort(rng.choice(shard, 3, replace=False)) for g in range(gp)}
-    got = device.sharded_runs(pmesh, got_depth, offs)
+    got = device.sharded_runs(pmesh, got_depth)
     assert sorted(got) == list(range(gp))
     for g in range(gp):
-        idx, vals, ovals = got[g]
+        idx, vals = got[g]
         part = slice(g * shard, (g + 1) * shard)
         np.testing.assert_array_equal(idx, np.flatnonzero(want[part]))
         np.testing.assert_array_equal(vals, depth[part][idx])
-        np.testing.assert_array_equal(ovals, depth[part][offs[g]])
 
 
 @pytest.mark.parametrize("dp,gp", MESHES)
@@ -174,32 +171,29 @@ def test_compaction_program_matches_jax(reads, dp, gp):
         for g in range(gp):
             own = offsets[o_shard == g] % shard
             loff[g, : own.shape[0]] = own
-        w_idx, w_vals, w_ovals = (np.asarray(x) for x in jax_device.make_sharded_compact_gather_fn(
+        w_idx, _, _ = (np.asarray(x) for x in jax_device.make_sharded_compact_gather_fn(
             jmesh, size, k_off)(jnp.asarray(bitmap), want_depth, jnp.asarray(loff)))
         change = jax_device.make_sharded_change_fn(jmesh, pad_total)(want_depth)
         (c_counts,) = jax_device.make_sharded_count_fn(jmesh, 1)(change)
         c_size = max(1, 1 << (int(np.asarray(c_counts).max()) - 1).bit_length())
-        c_idx, c_vals, c_ovals = (np.asarray(x) for x in jax_device.make_sharded_compact_gather_fn(
+        c_idx, c_vals, _ = (np.asarray(x) for x in jax_device.make_sharded_compact_gather_fn(
             jmesh, c_size, k_off)(change, want_depth, jnp.asarray(loff)))
     # the bitmap as bit 2 of a flag byte whose other bits are noise
     noise = rng.integers(0, 256, pad_total).astype(np.uint8) & 0b11111011
     flags = _gp_shards(pmesh, (noise | (bitmap.astype(np.uint8) << 2)).view(np.int8))
     got = device.sharded_compact_gather(flags, (4,))
-    loffs = {g: offsets[o_shard == g] % shard for g in range(gp)}
-    runs = device.sharded_runs(pmesh, got_depth, loffs)
+    runs = device.sharded_runs(pmesh, got_depth)
     assert sorted(got) == sorted(runs) == list(range(gp))
     for g in range(gp):
         (idx,) = got[g]
         keep = w_idx[g] >= 0
         assert idx.shape[0] == counts[g]
         np.testing.assert_array_equal(idx, w_idx[g][keep])
-        r_idx, r_vals, r_ovals = runs[g]
+        r_idx, r_vals = runs[g]
         keep = c_idx[g] >= 0
         assert r_idx.shape[0] == int(np.asarray(c_counts)[g])
         np.testing.assert_array_equal(r_idx, c_idx[g][keep])
         np.testing.assert_array_equal(r_vals, c_vals[g][keep])
-        np.testing.assert_array_equal(r_ovals, c_ovals[g][: loffs[g].shape[0]])
-        np.testing.assert_array_equal(r_ovals, w_ovals[g][: loffs[g].shape[0]])
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +253,37 @@ def test_sharded_depth_ops_match_jax(depth_pair, op):
     else:
         _same_events(j, p)
         _same_events(j.mask_gaps(GAPS).maximum(j2), p.mask_gaps(GAPS).maximum(p2))
+
+
+@pytest.mark.parametrize("dp,gp", MESHES)
+def test_sharded_runs_keep_the_invariant(reads, monkeypatch, dp, gp):
+    """The shards' runs that ``events_from_boundaries`` gets from a masked
+    two-type max, made global, are one run form: int64, strictly increasing
+    from slot 0, neighbouring depths different across shard borders too;
+    the events equal gci_tpu's array by array."""
+    from gci_tpu_torch.depth import sharded
+
+    seen = []
+    real = sharded.events_from_boundaries
+    monkeypatch.setattr(sharded, "events_from_boundaries",
+                        lambda layout, idx, vals: (seen.append((idx, vals)),
+                                                   real(layout, idx, vals))[1])
+    layout, tid, start, end = reads
+    half = tid.shape[0] // 2
+    jmesh, pmesh = jax_make_mesh(dp * gp, dp=dp), port_mesh(dp, gp)
+    values = []
+    for cls, mesh in ((JaxShardedDepth, jmesh), (ShardedDepth, pmesh)):
+        a = cls.from_reads(mesh, layout, tid, start, end, 15).mask_gaps(GAPS)
+        values.append(a.maximum(cls.from_reads(mesh, layout, tid[:half], start[:half],
+                                               end[:half], 15)))
+    j, p = values
+    events = p.to_events()
+    ((idx, vals),) = seen
+    assert idx.dtype == vals.dtype == np.int64
+    assert idx[0] == 0 and np.all(np.diff(idx) > 0)
+    assert np.all(vals[1:] != vals[:-1])
+    _same_events(j, p)
+    assert p.to_events() is events
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ import torch
 
 from gci_tpu.depth import streamed as jax_streamed
 from gci_tpu.depth.accum import GenomeLayout as JaxGenomeLayout
+from gci_tpu.depth.base import events_from_change_indices
 from gci_tpu.depth.eventspace import events_dict_from_reads as jax_events_dict
 from gci_tpu.depth.overlap import DeltaAccumulator as JaxDeltaAccumulator
 from gci_tpu.filters.cascade import dedup_last_wins as jax_dedup
@@ -20,7 +21,6 @@ from gci_tpu.io.names import hash_names as jax_hash_names
 from gci_tpu.io.names import keys_view as jax_keys_view
 from gci_tpu_torch import kernels, native
 from gci_tpu_torch.depth import accum, overlap, streamed
-from gci_tpu_torch.depth.base import events_from_change_indices
 from gci_tpu_torch.depth.device import scatter_events_into
 from gci_tpu_torch.depth.eventspace import DepthEvents
 from gci_tpu_torch.depth.accum import (
@@ -482,7 +482,8 @@ def test_delta_readout_checks_the_delta_and_consumes_it():
 def _events_by_gather(layout, runs):
     """The construction ``events_from_runs`` replaced: every target's
     boundaries, its start forced, gathered genome-wide by binary search into
-    the runs, then merged by ``_dedup`` (``events_from_change_indices``)."""
+    the runs, then merged by ``_dedup`` (gci_tpu's
+    ``events_from_change_indices``)."""
     runs = [r for r in runs if r[0].shape[0]]
     idx = np.concatenate([r[0] for r in runs]) if runs else np.zeros(1, np.int64)
     vals = np.concatenate([r[1] for r in runs]) if runs else np.zeros(1, np.int64)
@@ -640,6 +641,60 @@ def test_sweep_merges_runs_a_fixup_made_equal(runs_spy):
     flat = accumulate_depth_numpy(layout, np.zeros(3, np.int64),
                                   np.array([100, 9000, 9500]), np.array([1000, 9800, 10000]), 15)
     np.testing.assert_array_equal(got["c"].materialize(), flat[:39_999])
+
+
+@pytest.mark.parametrize("backend", ["resident", "sharded", "streamed"])
+def test_no_consumer_writes_the_shared_run_arrays(rng, monkeypatch, tmp_path, backend):
+    """Each backend's events may be views of the run arrays that
+    ``events_from_boundaries`` got.  Gap masking, the two-type max, the
+    issue BED, the checkpoint and the report (its regions read the
+    events) leave those arrays as they were."""
+    from gci_tpu_torch.depth import fused, sharded
+    from gci_tpu_torch.io.depth_file import write_depth_gz
+    from gci_tpu_torch.io.fasta import mask_gaps_in_depths
+    from gci_tpu_torch.parallel.mesh import make_mesh
+    from gci_tpu_torch.reports.writers import emit_issue_bed
+    from gci_tpu_torch.score.report import compute_continuity_report
+
+    module = {"resident": fused, "sharded": sharded, "streamed": streamed}[backend]
+    seen = []
+    real = module.events_from_boundaries
+
+    def spy(layout, idx, vals):
+        seen.append((idx, vals, idx.copy(), vals.copy()))
+        return real(layout, idx, vals)
+
+    monkeypatch.setattr(module, "events_from_boundaries", spy)
+    layout = GenomeLayout.from_targets(TARGETS)
+
+    def events(tid, start, end):
+        if backend == "resident":
+            return fused.DeviceDepth.from_reads(layout, tid, start, end, 15,
+                                                device=CPU).to_events()
+        if backend == "sharded":
+            mesh = make_mesh(8, dp=2, devices=[CPU] * 8)
+            return sharded.ShardedDepth.from_reads(mesh, layout, tid, start, end,
+                                                   15).to_events()
+        return streamed.events_from_reads_streamed(layout, tid, start, end, 15, 1024,
+                                                   device=CPU)
+
+    hifi, nano = events(*_random_reads(rng, 300)), events(*_random_reads(rng, 200))
+    assert len(seen) == 2
+    for ev, (_, vals, _, _) in zip((hifi, nano), seen):
+        assert any(np.shares_memory(e.values, vals) for e in ev.values())
+    gaps = {"a": [(0, 40), (500, 900)], "c": [(10, 20)]}
+    merged = {t: e.maximum(nano[t]) for t, e in mask_gaps_in_depths(dict(hifi), gaps).items()}
+    types = {"HiFi": hifi, "Nano": nano, "HiFi + Nano": merged}
+    beds = []
+    for k, (name, d) in enumerate(types.items()):
+        beds.append(emit_issue_bed(d, f"t{k}", 0, 15, str(tmp_path), True, name))
+        write_depth_gz(str(tmp_path / f"t{k}.depth.gz"), d)
+    compute_continuity_report(dict(TARGETS), "t", str(tmp_path), True, beds, list(types),
+                              regions_bed={"a": [(100, 8000)], "b": [(0, 7000)]},
+                              depths_list=list(types.values()))
+    for idx, vals, idx0, vals0 in seen:
+        np.testing.assert_array_equal(idx, idx0)
+        np.testing.assert_array_equal(vals, vals0)
 
 
 # ---------------------------------------------------------------------------

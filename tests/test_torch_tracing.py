@@ -386,7 +386,7 @@ def test_copy_counters_on_cuda_streamed(on, cuda_device, chunk_slots):
 def test_copy_counters_on_cuda_resident(on, cuda_device):
     """The resident path: 8 B to the card per scatter row (each read's start
     and stop, each scan window's two borders) and 8 B back per rise, fall,
-    run boundary, run value and target offset, exactly."""
+    run boundary and run value, exactly."""
     layout = GenomeLayout.from_targets(TARGETS)
     tid, start, end = _reads(2000)
     flat = accumulate_depth_numpy(layout, tid, start, end, 15)
@@ -395,7 +395,6 @@ def test_copy_counters_on_cuda_resident(on, cuda_device):
     d = DeviceDepth.from_reads(layout, tid, start, end, 15, device=cuda_device)
     d.to_events()
     torch.cuda.synchronize()
-    n_targets = len(TARGETS)
     assert on.counter_totals() == {
         "copies.h2d_bytes": 8 * (2 * tid.shape[0] + 2 * n_windows),
-        "copies.d2h_bytes": 8 * (_edges(flat, valid) + 2 * _boundaries(flat) + n_targets)}
+        "copies.d2h_bytes": 8 * (_edges(flat, valid) + 2 * _boundaries(flat))}
