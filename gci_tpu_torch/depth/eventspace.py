@@ -19,7 +19,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from gci_tpu_torch.intervals.collapse import runs_to_intervals
-from gci_tpu_torch.utils.metrics import span
+from gci_tpu_torch.utils.metrics import count, span
 
 if TYPE_CHECKING:
     from gci_tpu_torch.depth.accum import GenomeLayout
@@ -152,32 +152,42 @@ class DepthEvents:
         flank_len: int = 15,
         start_pos: int = 0,
     ) -> list[tuple[int, int]]:
-        """Reference-exact interval collapse (GCI.py:356-390 semantics)."""
+        """Reference-exact interval collapse (GCI.py:356-390 semantics).
+
+        Candidate-first: one compare pass over the values finds the runs in
+        ``(leftmost, rightmost]``; the flank clamps and the grouping touch
+        those runs alone, so the cost is one pass plus O(candidates).
+        Counters ``collapse.runs`` and ``collapse.candidates``.
+        """
         L = self.length
         n_scan = L - 2 * flank_len
         if n_scan <= 0:
             return []
-        next_b = np.concatenate([self.boundaries[1:], [L]])
-        lo = np.maximum(self.boundaries, flank_len)
+        b, v = self.boundaries, self.values
+        c = np.flatnonzero(v <= rightmost)
+        c = c[v[c] > leftmost]
+        count("collapse.runs", v.shape[0])
+        count("collapse.candidates", c.shape[0])
+        if c.shape[0] == 0:
+            return []
+        n = b.shape[0]
+        next_b = np.where(c + 1 < n, b[np.minimum(c + 1, n - 1)], L)
+        lo = np.maximum(b[c], flank_len)
         hi = np.minimum(next_b, L - flank_len)
-        sel = hi > lo
-        lo, hi = lo[sel], hi[sel]
+        keep = hi > lo
+        lo, hi = lo[keep], hi[keep]
         if lo.shape[0] == 0:
             return []
-        m = (self.values[sel] > leftmost) & (self.values[sel] <= rightmost)
-        d = np.diff(m.astype(np.int8))
-        rs = np.flatnonzero(d == 1) + 1
-        re_ = np.flatnonzero(d == -1) + 1
-        if m[0]:
-            rs = np.concatenate([[0], rs])
-        if m[-1]:
-            re_ = np.concatenate([re_, [m.shape[0]]])
-        r_starts = lo[rs] - flank_len
-        closed = re_ < m.shape[0]
-        end_from_hi = hi[re_ - 1] - flank_len
-        r_ends = np.where(closed, end_from_hi, n_scan)
+        # A kept run joins the previous one's interval when no scanned run
+        # lies between them, i.e. when they touch.  The last scanned run has
+        # hi == L - flank_len, so an interval still open there ends at n_scan.
+        new = np.concatenate([[True], hi[:-1] != lo[1:]])
+        first = np.flatnonzero(new)
+        last = np.concatenate([first[1:] - 1, [lo.shape[0] - 1]])
         return runs_to_intervals(
-            r_starts.astype(np.int64), r_ends.astype(np.int64), n_scan, flank_len, start_pos
+            (lo[first] - flank_len).astype(np.int64),
+            (hi[last] - flank_len).astype(np.int64),
+            n_scan, flank_len, start_pos,
         )
 
     def slice(self, start: int, end: int) -> "DepthEvents":

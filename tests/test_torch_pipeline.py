@@ -301,13 +301,16 @@ def test_cli_events_matches_jax(inputs, tmp_path, capsys):
     stdout = capsys.readouterr().out
     assert "GCI finished!!!" in stdout and "=== stage metrics ===" in stdout
     assert '"stage": "HiFi:depth_accumulate"' in stdout
-    # after the stage lines, one line per span (``--profile`` turns them on)
+    # after the stage lines, one line per span, then one per counter
+    # (``--profile`` turns them on)
     report = stdout.split("=== stage metrics ===")[1].strip().splitlines()
     rows = [json.loads(line) for line in report if line.startswith("{")]
     n_stages = sum("stage" in r for r in rows)
     assert n_stages and all("stage" in r for r in rows[:n_stages])
-    spans = {r["span"]: r for r in rows[n_stages:]}
-    assert len(spans) == len(rows) - n_stages
+    spans = {r["span"]: r for r in rows[n_stages:] if "span" in r}
+    counters = {r["counter"]: r["value"] for r in rows[n_stages + len(spans):]}
+    assert len(spans) + len(counters) == len(rows) - n_stages
+    assert counters["collapse.runs"] >= counters["collapse.candidates"] > 0
     assert spans["reports.issue_bed"]["calls"] == 3 and spans["score.report"]["calls"] == 1
     assert spans["merge.max"]["calls"] >= 1 and spans["mask.gaps"]["calls"] == 3
     assert all(0 <= r["self_seconds"] <= r["seconds"] for r in spans.values())

@@ -243,7 +243,9 @@ def test_stage_is_a_range_under_the_profiler(registry, tmp_path):
 @pytest.mark.parametrize("depth_kind", ["events", "resident"])
 def test_issue_bed_spans_and_no_stage_record(on, tmp_path, depth_kind):
     """``emit_issue_bed``: ``reports.issue_bed`` around ``reports.collapse``
-    and ``reports.write``, each once; no stage record."""
+    and ``reports.write``, each once; no stage record.  On event-space depth
+    the counters ``collapse.runs`` and ``collapse.candidates`` hold every run
+    read and the runs in ``(-1, 0]``; the resident path bypasses them."""
     layout = GenomeLayout.from_targets(TARGETS)
     tid, start, end = _reads(60)
     if depth_kind == "events":
@@ -258,6 +260,15 @@ def test_issue_bed_spans_and_no_stage_record(on, tmp_path, depth_kind):
         "reports.issue_bed": 1, "reports.collapse": 1, "reports.write": 1}
     _check_nesting(totals, "reports.issue_bed", ("reports.collapse", "reports.write"))
     assert on.records == []
+    counters = on.counter_totals()
+    if depth_kind == "events":
+        values = [d.values for d in depths.values()]
+        zero = sum(int(((v > -1) & (v <= 0)).sum()) for v in values)
+        assert zero > 0
+        assert counters == {"collapse.runs": sum(v.shape[0] for v in values),
+                            "collapse.candidates": zero}
+    else:
+        assert "collapse.runs" not in counters and "collapse.candidates" not in counters
 
 
 @pytest.mark.parametrize("limit", [None, 1])
