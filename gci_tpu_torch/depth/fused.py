@@ -266,7 +266,8 @@ class DeviceDepth(ResidentDepth):
 
         The whole is the span ``fused.build``; inside it ``fused.pack``,
         ``fused.scatter``, ``fused.scan``, ``fused.readback`` and
-        ``fused.intervals``.
+        ``fused.intervals``.  The counter ``fused.boundaries`` adds the run
+        boundaries read back (slot 0 included).
         """
         with span("fused.build"):
             rows = _event_rows(layout, start.shape[0], gaps, flank_len)
@@ -377,6 +378,7 @@ class DeviceDepth(ResidentDepth):
         # scatter row, or at slot 0: ``rows`` + 1 bounds each stream
         (rise_idx, fall_idx, change_idx), change_vals = _batched_flags_readback(
             raw, out_flags, (1, 2, 4), 2, None if rows is None else rows + 1)
+        count("fused.boundaries", change_idx.shape[0])
         with span("fused.intervals"):
             intervals = edge_indices_to_intervals(
                 layout, rise_idx, fall_idx, flank_len

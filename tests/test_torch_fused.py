@@ -10,7 +10,12 @@ import torch
 
 import jax.numpy as jnp
 
-from gci_tpu.depth.accum import GenomeLayout, accumulate_depth_numpy, depth_dict_from_flat
+from gci_tpu.depth.accum import (
+    GenomeLayout,
+    accumulate_depth_numpy,
+    clamp_read_intervals,
+    depth_dict_from_flat,
+)
 from gci_tpu.depth.fused import DeviceDepth as JaxDeviceDepth
 from gci_tpu.intervals.collapse import collapse_depth_runs
 from gci_tpu_torch.depth import device as tdevice
@@ -435,6 +440,62 @@ def test_resident_runs_keep_the_invariant(rng, monkeypatch, case):
         np.testing.assert_array_equal(events[t].boundaries, want[t].boundaries, err_msg=t)
         np.testing.assert_array_equal(events[t].values, want[t].values, err_msg=t)
         assert events[t].length == want[t].length, t
+
+
+def _wrapping_reads(rng, layout, n, max_start):
+    """Reads that start before 0, end past their target or end below 0
+    (the reference slice's wrap)."""
+    tid, start, end = _reads(rng, layout, n, max_start)
+    start = start - rng.integers(0, 3000, n)
+    return tid, start, start + rng.integers(-2000, 7000, n)
+
+
+@pytest.mark.parametrize("pad_to", [None, 10, 1000])
+@pytest.mark.parametrize("case", ["wrapping", "int64_ids", "zero_reads"])
+def test_pack_read_deltas_clamps_wrapping_reads(rng, case, pad_to):
+    """``pack_read_deltas`` equals the whole read set's clamp plus its
+    target's offset, as int32 and zero-padded, and ``gci_tpu``'s."""
+    from gci_tpu.depth import device as jdevice
+
+    layout = GenomeLayout.from_targets({"a": 5000, "tiny": 20, "b": 3000})
+    n = 0 if case == "zero_reads" else 300
+    tid, start, end = _wrapping_reads(rng, layout, n, 2500)
+    if case == "int64_ids":
+        tid = tid.astype(np.int64)
+    s, e = clamp_read_intervals(layout, tid, start, end, 15)
+    base = layout.offsets[tid]
+    pad = max(0, (pad_to or 0) - n)
+    want = [np.concatenate([x.astype(np.int32), np.zeros(pad, np.int32)])
+            for x in (base + s, base + e, e > s)]
+    got = tdevice.pack_read_deltas(layout, tid, start, end, 15, pad_to=pad_to)
+    ref = jdevice.pack_read_deltas(layout, tid, start, end, 15, pad_to=pad_to)
+    for g, w, r in zip(got, want, ref):
+        assert g.dtype == np.int32
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, np.asarray(r))
+
+
+@pytest.mark.cuda
+def test_held_outputs_share_no_buffer_on_cuda(rng):
+    """Two values built on the card one after the other, both held: each
+    one's run form and events equal the CPU's, and no array of the first
+    shares memory with the second's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    targets, n, max_start, _ = CASES["no_gaps"]
+    layout = GenomeLayout.from_targets(targets)
+    sets = [_reads(rng, layout, n, max_start) for _ in range(2)]
+    held = [DeviceDepth.from_reads(layout, *reads, 15, device=cuda) for reads in sets]
+    events = [d.to_events() for d in held]
+    for d, ev, reads in zip(held, events, sets):
+        want = DeviceDepth.from_reads(layout, *reads, 15, device=CPU)
+        for a, b in zip(d._runs, want._runs):
+            np.testing.assert_array_equal(a, b)
+        _assert_events_equal(ev, want.to_events())
+    first = list(held[0]._runs) + [a for e in events[0].values() for a in (e.boundaries, e.values)]
+    second = list(held[1]._runs) + [a for e in events[1].values() for a in (e.boundaries, e.values)]
+    assert not any(np.shares_memory(a, b) for a in first for b in second)
 
 
 @pytest.mark.cuda

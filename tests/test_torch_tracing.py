@@ -295,6 +295,39 @@ def test_fused_spans(on, monkeypatch, limit):
     _check_nesting(totals, "fused.build", FUSED_CHILDREN)
 
 
+@pytest.mark.parametrize("build", ["packed", "flags", "delta"])
+def test_fused_boundaries_counter_is_the_run_form(registry, monkeypatch, build):
+    """``fused.boundaries``, once per resident build: the length of the run
+    form the value hands its checkpoint (slot 0 included), on the packed
+    word, the flags scan at a lowered limit and ``from_delta``; counted only
+    while the registry records."""
+    from gci_tpu_torch.depth import fused
+
+    if build == "flags":
+        monkeypatch.setattr(fused, "PACKED_DEPTH_LIMIT", 1)
+    layout = GenomeLayout.from_targets(TARGETS)
+    tid, start, end = _reads()
+
+    def one():
+        if build == "delta":
+            gs, ge = _global_events(layout, tid, start, end, 15)
+            delta = torch.zeros(layout.total_slots, dtype=torch.int32)
+            scatter_events_into(delta, [(gs, 1), (ge, -1)])
+            return DeviceDepth.from_delta(layout, delta, 15, rows=2 * gs.shape[0])
+        return DeviceDepth.from_reads(layout, tid, start, end, 15, device=CPU)
+
+    one()
+    assert registry.counter_totals() == {}
+    registry.enabled = True
+    d = one()
+    flat = accumulate_depth_numpy(layout, tid, start, end, 15)
+    assert registry.counter_totals() == {"fused.boundaries": d._runs[0].shape[0]}
+    assert d._runs[0].shape[0] == _boundaries(flat)
+    d.to_events()
+    one()
+    assert registry.counter_totals() == {"fused.boundaries": 2 * _boundaries(flat)}
+
+
 @pytest.mark.parametrize("caller", ["reads", "delta", "sweep"])
 def test_boundaries_counter_is_the_runs_read_back(on, monkeypatch, caller):
     """``streamed.boundaries``, once per ``events_from_runs``: the run
@@ -397,7 +430,8 @@ def test_copy_counters_on_cuda_streamed(on, cuda_device, chunk_slots):
 def test_copy_counters_on_cuda_resident(on, cuda_device):
     """The resident path: 8 B to the card per scatter row (each read's start
     and stop, each scan window's two borders) and 8 B back per rise, fall,
-    run boundary and run value, exactly."""
+    run boundary and run value, exactly; ``fused.boundaries`` the run
+    boundaries."""
     layout = GenomeLayout.from_targets(TARGETS)
     tid, start, end = _reads(2000)
     flat = accumulate_depth_numpy(layout, tid, start, end, 15)
@@ -408,4 +442,5 @@ def test_copy_counters_on_cuda_resident(on, cuda_device):
     torch.cuda.synchronize()
     assert on.counter_totals() == {
         "copies.h2d_bytes": 8 * (2 * tid.shape[0] + 2 * n_windows),
-        "copies.d2h_bytes": 8 * (_edges(flat, valid) + 2 * _boundaries(flat))}
+        "copies.d2h_bytes": 8 * (_edges(flat, valid) + 2 * _boundaries(flat)),
+        "fused.boundaries": _boundaries(flat)}
